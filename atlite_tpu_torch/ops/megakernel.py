@@ -1,0 +1,167 @@
+"""Fused wind + PV + bus aggregation (counterpart of
+``atlite_tpu/ops/megakernel.py``).
+
+``wind_pv_bus_megakernel`` launches the hand-written CUDA kernel
+``csrc/megakernel.cu`` for tensors on a CUDA card and runs the plain
+version, ``wind_pv_bus_plain`` (the physics modules and
+``aggregate.dense_spmm`` in turn), for tensors on the CPU.  Both follow the
+step they fuse, including the sparse NaN rule of the aggregation: a NaN
+cell poisons only the buses whose matrix row is nonzero there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from atlite_tpu_torch import aggregate
+from atlite_tpu_torch.physics import irradiation, orientation, pv, wind
+
+FIELD_ORDER = (
+    "wnd100m", "roughness", "solar_altitude", "solar_azimuth",
+    "influx_toa", "influx_direct", "influx_diffuse", "albedo", "temperature",
+)
+# kMaxKnots of csrc/megakernel.cu: the kernel keeps the power curve in
+# shared memory (its launcher refuses more)
+MAX_KNOTS = 256
+
+# Huld panel parameters the kernel takes, in its order, with the defaults
+# of the JAX kernel
+_PANEL_KEYS = (
+    ("k_1", None), ("k_2", None), ("k_3", None), ("k_4", None),
+    ("k_5", None), ("k_6", None), ("c_temp_irrad", 0.035),
+    ("c_temp_amb", 1.0), ("r_tmod", 298.0), ("r_irradiance", 1000.0),
+    ("inverter_efficiency", 1.0),
+)
+
+
+def _panel(panel):
+    """Complete Huld parameters; the kernel computes no other model."""
+    if panel.get("model", "huld") != "huld":
+        raise ValueError(f"the fused step computes the Huld model only, "
+                         f"not {panel['model']!r}")
+    missing = [k for k, d in _PANEL_KEYS if d is None and k not in panel]
+    if missing:
+        raise KeyError(f"panel lacks {missing}")
+    return {k: float(panel.get(k, d)) for k, d in _PANEL_KEYS}
+
+
+def _check(fields, lat_cell, matrix, V, POWn):
+    """Raise on what the kernel does not take; returns (T, C, B, device)."""
+    missing = [k for k in FIELD_ORDER if k not in fields]
+    if missing:
+        raise KeyError(f"fields lack {missing}")
+    tensors = {**{k: fields[k] for k in FIELD_ORDER}, "lat_cell": lat_cell,
+               "matrix": matrix, "V": V, "POWn": POWn}
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, not {type(t).__name__}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, not {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    device = fields["wnd100m"].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"tensors must lie on the CPU or a CUDA card, not {device}")
+    off = [name for name, t in tensors.items() if t.device != device]
+    if off:
+        raise ValueError(f"{off} are not on {device}, where the fields are")
+    if fields["wnd100m"].ndim != 2:
+        raise ValueError("fields must be (T, C)")
+    T, C = fields["wnd100m"].shape
+    bad = [k for k in FIELD_ORDER if fields[k].shape != (T, C)]
+    if bad:
+        raise ValueError(f"fields {bad} are not of shape {(T, C)}")
+    if T < 1 or C < 1:
+        raise ValueError(f"empty fields {(T, C)}")
+    if lat_cell.shape != (C,):
+        raise ValueError(f"lat_cell must be ({C},), not {tuple(lat_cell.shape)}")
+    if matrix.ndim != 2 or matrix.shape[1] != C or matrix.shape[0] < 1:
+        raise ValueError(f"matrix must be (B, {C}), not {tuple(matrix.shape)}")
+    if V.ndim != 1 or V.shape != POWn.shape:
+        raise ValueError("V and POWn must be 1-D of one length")
+    if not 2 <= V.shape[0] <= MAX_KNOTS:
+        raise ValueError(f"the power curve needs 2 to {MAX_KNOTS} knots, "
+                         f"not {V.shape[0]}")
+    return T, C, matrix.shape[0], device
+
+
+@functools.cache
+def _library():
+    """The built kernel library, its C signatures declared."""
+    from atlite_tpu_torch.ops import _build
+
+    lib = _build.library("megakernel")
+    lib.wind_pv_bus_splits.restype = ctypes.c_int
+    lib.wind_pv_bus_splits.argtypes = [ctypes.c_int] * 3
+    lib.wind_pv_bus_launch.restype = ctypes.c_int
+    lib.wind_pv_bus_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6)
+    lib.wind_pv_bus_error_string.restype = ctypes.c_char_p
+    lib.wind_pv_bus_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height=80.0):
+    """Plain PyTorch version of the fused step, module by module.
+
+    The (T, C) fields are viewed as (T, C, 1), cells on the latitude axis,
+    so that ``lat_cell`` broadcasts as the modules' (Y,) latitudes.
+    """
+    f = {k: fields[k][..., None] for k in FIELD_ORDER}
+    cf_w = wind.power_curve(wind.extrapolate_wind_speed(f, hub_height), V, POWn, 1.0)
+    sp = {"altitude": f["solar_altitude"], "azimuth": f["solar_azimuth"]}
+    surf = orientation.surface_orientation(sp, lat_cell, {"kind": "latitude_optimal"})
+    irr = irradiation.tilted_irradiation(f, sp, surf, trigon_model="simple",
+                                         clearsky_model="simple")
+    cf_p = pv.power_huld(irr, f["temperature"], _panel(panel))
+    T = cf_w.shape[0]
+    return (aggregate.dense_spmm(cf_w.reshape(T, -1), matrix),
+            aggregate.dense_spmm(cf_p.reshape(T, -1), matrix))
+
+
+def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=80.0):
+    """Fused wind + PV + aggregation.
+
+    fields: dict of (T, C) float32 tensors (FIELD_ORDER keys, wind at
+    100 m); lat_cell: (C,) latitude of each flattened cell [deg]; matrix:
+    (B, C) aggregation weights; V, POWn: power-curve knots (2 to
+    MAX_KNOTS) and normalised power; panel: Huld parameters.  Returns
+    (wind_bus, pv_bus), each (T, B).  CUDA tensors go through the kernel
+    (``launches`` counts the launches), CPU tensors through the plain
+    version.
+    """
+    T, C, B, device = _check(fields, lat_cell, matrix, V, POWn)
+    if device.type == "cpu":
+        return wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height)
+
+    lib = _library()
+    prm = _panel(panel)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = lib.wind_pv_bus_splits(T, C, sms)
+
+    _, _, _, slope = wind.curve_segments(V, POWn)
+    slope = slope.contiguous()
+    part = torch.empty((2, splits, T, B), dtype=torch.float32, device=device)
+    out = torch.empty((2, T, B), dtype=torch.float32, device=device)
+    field_ptrs = (ctypes.c_void_p * len(FIELD_ORDER))(
+        *[fields[k].data_ptr() for k in FIELD_ORDER])
+    params = (ctypes.c_float * 12)(float(hub_height), *prm.values())
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    rc = lib.wind_pv_bus_launch(
+        device.index, field_ptrs, lat_cell.data_ptr(), matrix.data_ptr(),
+        V.data_ptr(), POWn.data_ptr(), slope.data_ptr(), V.shape[0], T, C, B,
+        splits, params, part[0].data_ptr(),
+        part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), stream)
+    if rc != 0:
+        msg = lib.wind_pv_bus_error_string(rc).decode()
+        raise RuntimeError(f"wind_pv_bus_megakernel launch failed: CUDA error {rc} ({msg})")
+    wind_pv_bus_megakernel.launches += 1
+    return out[0], out[1]
+
+
+wind_pv_bus_megakernel.launches = 0
