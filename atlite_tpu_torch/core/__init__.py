@@ -1,1 +1,1 @@
-"""Host-side helpers (calendar math) of the PyTorch port."""
+"""Host-side helpers (calendar math, the grid) of the PyTorch port."""

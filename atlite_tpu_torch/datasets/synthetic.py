@@ -1,10 +1,11 @@
 """Deterministic synthetic ERA5-like weather (counterpart of
 ``atlite_tpu/datasets/synthetic.py``).
 
-The same seeded analytic fields as the JAX package's generator, for the
-features the headline step's inputs hold (height, wind, influx,
-temperature).  It takes the grid as ``x, y, times, seed`` instead of a
-cutout, and does its calendar math with numpy ``datetime64``
+The same seeded analytic fields as the JAX package's generator.  The
+dataset module contract (``crs``, ``features``, ``static_features``,
+``get_data(cutout, feature, tmpdir=None, **params)``) serves the Cutout;
+``generate`` takes the grid as ``x, y, times, seed`` for the headline
+step's inputs.  Calendar math runs on numpy ``datetime64``
 (``core/timeutil.py``), so it needs no pandas.
 """
 
@@ -20,6 +21,25 @@ from atlite_tpu_torch.core.timeutil import (
     to_datetime64,
 )
 from atlite_tpu_torch.physics.solar import solar_position_numpy
+
+crs = 4326
+
+features = {
+    "height": ["height"],
+    "wind": ["wnd100m", "wnd10m", "wnd_shear_exp", "wnd_azimuth", "roughness"],
+    "influx": [
+        "influx_toa",
+        "influx_direct",
+        "influx_diffuse",
+        "albedo",
+        "solar_altitude",
+        "solar_azimuth",
+    ],
+    "temperature": ["temperature", "soil temperature", "dewpoint temperature"],
+    "runoff": ["runoff"],
+}
+
+static_features = {"height"}
 
 SOLAR_CONSTANT = 1361.0  # W/m^2
 _EPOCH = np.datetime64("2000-01-01", "ns")
@@ -62,7 +82,14 @@ def _static_field(seed, name, lon, lat, nharm=5):
     return 0.5 + 0.5 * acc
 
 
-def get_data(feature, x, y, times, seed=42):
+def get_data(cutout, feature, tmpdir=None, **creation_parameters):
+    """Generate one feature on the cutout's grid, seeded by its ``seed``
+    attribute (default 42); returns {var: (dims, np.ndarray)}."""
+    grid = cutout.grid_desc
+    return generate(feature, grid.x, grid.y, grid.time, int(cutout.attrs.get("seed", 42)))
+
+
+def generate(feature, x, y, times, seed=42):
     """Generate one feature on the grid (x: (X,) lon, y: (Y,) lat, times:
     (T,) stamps); returns {var: (dims, float64 array)}."""
     lon, lat = np.asarray(x), np.asarray(y)
@@ -134,5 +161,10 @@ def get_data(feature, x, y, times, seed=42):
             "soil temperature": (tyx, soil),
             "dewpoint temperature": (tyx, dew),
         }
+
+    if feature == "runoff":
+        r = _smooth_field(seed, "runoff", times, lon, lat)
+        runoff = np.clip(r - 0.35, 0.0, None) ** 2 * 2e-3
+        return {"runoff": (tyx, runoff)}
 
     raise ValueError(f"unknown feature {feature!r}")

@@ -40,7 +40,7 @@ def example_inputs(T=24, Y=16, X=32, B=4, seed=7,
     times = np.datetime64(start, "ns") + np.arange(T) * np.timedelta64(1, "h")
     fields = {}
     for feature in ("wind", "influx", "temperature", "height"):
-        for var, (dims, arr) in synthetic.get_data(feature, x, y, times, seed).items():
+        for var, (dims, arr) in synthetic.generate(feature, x, y, times, seed).items():
             fields[var] = np.asarray(arr, dtype=np.float32)
     eph = {k: np.asarray(v, dtype=np.float32)
            for k, v in solar_ephemeris(times).items()}

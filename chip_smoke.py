@@ -19,28 +19,62 @@ Phases, in order; any failure exits non-zero:
      tile) against the plain version on the card and on the CPU;
   8. timing with CUDA events: the fused step, its cell-hours/s and byte
      bound, the plain version, and the two torch.matmul aggregations
-     alone; then the step's device time by kernel from torch.profiler.
+     alone; then the step's device time by kernel from torch.profiler;
+  9. continental inputs: a synthetic Cutout on the 241 x 481 grid of
+     bench_continental.py over T=1440 h (two 720 h chunks; the full year
+     is cut for time), prepared with wind, influx and temperature, and a
+     (2048, C) region matrix (32 x 64 rectangles) that must take the
+     banded route;
+ 10. the continental path: ``cutout.wind``/``cutout.pv`` with the matrix,
+     resident, streamed raw and streamed int16-packed in 720 h chunks;
+     streamed against resident (raw within 1e-5 * max, packed within the
+     bounds of bench_continental.py), the first 48 h against the plain
+     path on the CPU; wall seconds, cell-hours/s, per-chunk ms of host
+     packing (the pinned buffers' allocation apart), conversion and
+     banded aggregation, read from the streamer's profiler ranges, and of
+     the copy, from the trace's pinned transfers (or its range), and the
+     device's idle share over each run (torch.profiler); a step whose
+     device record the trace did not link is printed as missing, not
+     failed;
+ 11. the BSR entry: ``bsr_spmm_kernel`` on the wind capacity factors of
+     the first 720 h against the plain ``bsr_spmm`` (same bits on a
+     second call), NaN cells (identical NaN masks), an empty row block
+     (exact zeros), two ragged shapes on the card and the CPU; timing
+     against its bound, the plain version, a dense torch.matmul and
+     torch.sparse.mm on a sparse BSR tensor; its bound counts a product
+     per nonzero entry of the blocks.
 Then one JSON line of kernels and, last, the result line.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
-from atlite_tpu_torch import build_inputs, entry, from_jax_inputs
+from atlite_tpu_torch import Cutout, aggregate, build_inputs, entry, from_jax_inputs
+from atlite_tpu_torch.convert import convert_wind
 from atlite_tpu_torch.entry import HUB_HEIGHT, PANEL
 from atlite_tpu_torch.ops import _build
+from atlite_tpu_torch.ops.bsr_spmm import (
+    banded_width,
+    bsr_spmm,
+    bsr_spmm_kernel,
+    stage_bsr,
+    to_bsr,
+)
 from atlite_tpu_torch.ops.megakernel import (
     FIELD_ORDER,
     wind_pv_bus_megakernel,
     wind_pv_bus_plain,
 )
+from atlite_tpu_torch.resource import get_windturbineconfig
 
 BENCH_SHAPE = (2184, 96, 128, 20)
 RAGGED_SHAPES = ((30, 7, 13, 3), (45, 9, 20, 37))
@@ -48,6 +82,16 @@ REL_TOL = 1e-5              # max abs diff allowed, relative to max |plain|
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, outside the tensor cores
 PHYS_FLOPS = 70             # float ops of the physics chain per cell-hour
+# the continental cut: bench_continental.py's grid and regions, 1440 h
+CONT_DX, CONT_DY = 30 / 480, 25 / 240
+CONT_TIME = slice("2013-01-01", "2013-03-01")
+CONT_REGIONS = (32, 64)
+CHUNK = 720
+CONT_SHAPE = (2 * CHUNK, 241, 481)  # (T, Y, X)
+BSR_RAGGED = ((333, 5003, 77), (97, 2049, 130))  # (T, C, B) at block 8 x 256
+# the streamer's profiler ranges, one per step and chunk (convert.py)
+STEP = re.compile(r"(pin|pack|copy|convert|aggregate) (\d+):(\d+)$")
+PINNED_COPY = "Memcpy HtoD (Pinned -> Device)"  # the profiler's name for it
 
 
 def log(msg):
@@ -90,16 +134,95 @@ def device_breakdown(fn, reps=5):
     """{kernel name: device ms a call} over ``reps`` calls, from
     torch.profiler; empty when the profiler records no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     return {e.key: e.device_time_total / 1e3 / reps for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+
+
+def device_idle(prof, wall_ms):
+    """(busy ms, idle share) of the card over a run of ``wall_ms``: the
+    union of the device intervals torch.profiler recorded (kernels and
+    copies on every stream); None when it recorded none."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not STEP.match(e.name)
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy = (busy + hi - lo) / 1e3
+    return busy, max(0.0, 1 - busy / wall_ms)
+
+
+def chunk_steps(prof):
+    """({(t0, t1): {step: ms}}, n) of a streamed call, from the streamer's
+    profiler ranges: host ms for pin and pack (the worker thread), device
+    ms of the kernels launched inside convert and aggregate.  The trace
+    does not always link a device record to its range (a chunk's copy, or
+    the last kernels of a call, have gone missing), so such a step reads
+    0.  When the trace holds one pinned host-to-card transfer a chunk
+    (only the streamer's side stream makes them), copy is the k-th of
+    them, linked or not; n is the number of such transfers."""
+    from torch.autograd import DeviceType
+
+    out, copies = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name == PINNED_COPY:
+            copies.append((e.time_range.start, e.time_range.elapsed_us() / 1e3))
+        m = STEP.match(e.name)
+        if m is None or e.device_type != DeviceType.CPU:
+            continue
+        step = m.group(1)
+        ms = (e.time_range.elapsed_us() if step in ("pin", "pack") else
+              e.device_time_total) / 1e3
+        steps = out.setdefault((int(m.group(2)), int(m.group(3))), {})
+        steps[step] = steps.get(step, 0.0) + ms
+    out = dict(sorted(out.items()))
+    if len(copies) == len(out):
+        for steps, (_, ms) in zip(out.values(), sorted(copies)):
+            steps["copy"] = ms
+    return out, len(copies)
+
+
+def step_ms(ms, fmt):
+    """A step of the per-chunk split as printed: its ms, or its absence."""
+    return f"{ms:{fmt}} ms" if ms else "not in the trace"
+
+
+def profiled():
+    """torch.profiler over the CPU (every thread, the streamer's worker
+    included) and the card."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   experimental_config=_ExperimentalConfig(profile_all_threads=True))
+
+
+def region_matrix(cutout, ny, nx):
+    """(ny * nx, C) float32 matrix: each cell, by its centre, to one of
+    ny x nx equal rectangles over the cutout's extent, weight 1."""
+    g = cutout.grid_desc
+    gx = np.linspace(g.x[0], g.x[-1], nx + 1)
+    gy = np.linspace(g.y[0], g.y[-1], ny + 1)
+    ix = np.clip(np.searchsorted(gx, g.x, side="right") - 1, 0, nx - 1)
+    iy = np.clip(np.searchsorted(gy, g.y, side="right") - 1, 0, ny - 1)
+    bus = (iy[:, None] * nx + ix[None, :]).ravel()
+    C = bus.size
+    return sp.csr_matrix((np.ones(C, dtype=np.float32), (bus, np.arange(C))),
+                         shape=(ny * nx, C))
 
 
 def flat_args(args):
@@ -118,6 +241,249 @@ def run_both(args):
     want = wind_pv_bus_plain(flat, lat_cell, matrix, V, POWn, PANEL, HUB_HEIGHT)
     torch.cuda.synchronize()
     return got, want
+
+
+def continental_inputs():
+    """Phase 9: the continental Cutout and region matrix."""
+    t0 = time.perf_counter()
+    cut = Cutout(module="synthetic", x=slice(-12, 18 + CONT_DX / 2),
+                 y=slice(35, 60 + CONT_DY / 2), dx=CONT_DX, dy=CONT_DY, time=CONT_TIME)
+    cut.prepare(features=["wind", "influx", "temperature"])
+    T, (Y, X) = len(cut.grid_desc.time), cut.shape
+    C = Y * X
+    log(f"continental inputs: T={T} Y={Y} X={X} (C={C}), {len(cut.data)} variables, "
+        f"prepared on the host in {time.perf_counter() - t0:.2f} s")
+    if (T, Y, X) != CONT_SHAPE:
+        raise RuntimeError(f"continental grid {(T, Y, X)}, want {CONT_SHAPE}")
+    log(f"  cut: T={T} h (two {CHUNK} h chunks) of the full year's 8760 h, "
+        f"{T * C / 1e6:.1f}M of {8760 * C / 1e6:.1f}M cell-hours, to keep the phase "
+        "within the smoke's time (host synthesis alone grows with T)")
+    matrix = region_matrix(cut, *CONT_REGIONS)
+    B = matrix.shape[0]
+    bsr = to_bsr(matrix)
+    nb, W = banded_width(matrix)
+    # spmm_closure's routing rule
+    route = ("dense" if B * C <= aggregate._DENSE_LIMIT else
+             "banded" if nb * 128 * W <= B * C // 2 else "chunked")
+    log(f"  matrix ({B}, {C}), {matrix.nnz} entries: B*C = {B * C / 1e6:.1f}M "
+        f"= {B * C / aggregate._DENSE_LIMIT:.2f} x the dense limit; banded nb={nb} "
+        f"W={W} ({nb * 128 * W / 1e6:.1f}M band entries); to_bsr(32, 512) K="
+        f"{len(bsr['row_blk'])} ({len(bsr['row_blk']) * 32 * 512 / (B * bsr['C_pad']):.2%} "
+        f"of the blocks); route {route}")
+    if route != "banded":
+        raise RuntimeError(f"the continental matrix takes the {route} route, not banded")
+    return cut, matrix
+
+
+def continental_path(cut, matrix, card):
+    """Phase 10: wind and PV resident, streamed raw and streamed packed;
+    returns the resident wind capacity factors of the first CHUNK hours
+    as a (CHUNK, C) tensor on the card."""
+    T, (Y, X) = len(cut.grid_desc.time), cut.shape
+    C, B = Y * X, matrix.shape[0]
+    runs = {
+        "wind": lambda **k: cut.wind(turbine="Vestas_V112_3MW", matrix=matrix,
+                                     aggregate_time=None, **k),
+        "pv": lambda **k: cut.pv(panel="CSi", orientation="latitude_optimal", matrix=matrix,
+                                 aggregate_time=None, **k),
+    }
+    modes = {"resident": dict(time_chunk=0), "streamed raw": dict(time_chunk=CHUNK),
+             "streamed int16": dict(time_chunk=CHUNK, stream_pack="int16")}
+    log(f"continental path on {card}:")
+    t0 = time.perf_counter()
+    fields = cut.fields()
+    torch.cuda.synchronize()
+    log(f"  resident staging: {len(fields)} fields on the card in "
+        f"{time.perf_counter() - t0:.2f} s (set-up of the resident mode)")
+    if not all(t.is_cuda for t in fields.values()):
+        raise RuntimeError("the resident fields are not on the card")
+    nb, W = banded_width(matrix)
+    band_flops = 2 * nb * 128 * W * CHUNK
+    windows = [(t, t + CHUNK) for t in range(0, T, CHUNK)]
+    # set-up: the streamer keeps two pinned buffers on the Cutout, sized by
+    # the largest chunk so far; a streamed raw PV call sizes them for all
+    # the runs below, so that none of them times the allocation
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        runs["pv"](**modes["streamed raw"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    pin = sum(c.get("pin", 0.0) for c in chunk_steps(prof)[0].values())
+    log(f"  streamer set-up: a first streamed raw PV call, {wall:.3f} s, of which {pin:.1f} ms "
+        "allocating the two pinned buffers that the runs below reuse")
+    out = {}
+    for mode, kw in modes.items():
+        for name, fn in runs.items():
+            wind_pv_bus_megakernel.launches = bsr_spmm_kernel.launches = 0
+            torch.cuda.synchronize()
+            with profiled() as prof:
+                t0 = time.perf_counter()
+                res = fn(**kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            vals = np.asarray(res.values)
+            if vals.shape != (B, T) or not np.isfinite(vals).all():
+                raise RuntimeError(f"{name} {mode}: {vals.shape}, finite "
+                                   f"{np.isfinite(vals).all()}, want ({B}, {T})")
+            # staged: every chunk ran each step's range (host records, always
+            # kept) and packed on the host, and the trace holds a pinned
+            # transfer, which only the streamer's side stream makes
+            chunks, n_copies = chunk_steps(prof)
+            staged = list(chunks) == windows and n_copies >= 1 and all(
+                {"pack", "copy", "convert", "aggregate"} <= set(c) and c["pack"] > 0
+                for c in chunks.values())
+            if kw["time_chunk"] and not staged:
+                raise RuntimeError(f"{name} {mode}: chunks not staged through the card's "
+                                   f"copy stream ({n_copies} pinned transfers): {chunks}")
+            lost = sum(c[k] == 0 for c in chunks.values() for k in ("copy", "convert", "aggregate"))
+            idle = device_idle(prof, wall * 1e3)
+            log(f"  {name} {mode}: {wall:.3f} s = {T * C / wall:.4g} cell-hours/s "
+                f"(host work included{', under torch.profiler' if idle else ''}); "
+                f"kernel launches {wind_pv_bus_megakernel.launches + bsr_spmm_kernel.launches}"
+                + ("" if idle is None else
+                   f"; device busy {idle[0]:.1f} ms, idle share {idle[1]:.3f}")
+                + (f"; {n_copies} pinned transfers in the trace, {lost} step(s) of the "
+                   "split not in it" if kw["time_chunk"] else ""))
+            for (c0, c1), c in chunks.items():
+                pin = c.get("pin", 0.0)
+                log(f"    chunk [{c0}, {c1}): pack {c['pack'] - pin:.1f} ms"
+                    + (f" (and {pin:.1f} ms allocating the pinned buffers)" if pin else "")
+                    + f", copy {step_ms(c['copy'], '.2f')}, convert "
+                    f"{step_ms(c['convert'], '.2f')}, banded aggregation "
+                    f"{step_ms(c['aggregate'], '.3f')} (bound "
+                    f"{band_flops / FP32_FLOPS * 1e3:.3f} ms: {band_flops / 1e9:.2f} GFLOP)")
+            out[name, mode] = vals
+
+    for name in runs:
+        res = out[name, "resident"]
+        scale = float(np.abs(res).max())
+        raw = float(np.abs(out[name, "streamed raw"] - res).max())
+        diff = np.abs(out[name, "streamed int16"] - res)
+        log(f"  {name}: streamed raw vs resident max {raw:.3e}; int16 vs resident max "
+            f"{diff.max():.3e}, p999 {np.quantile(diff, 0.999):.3e} (max |resident| {scale:.4g})")
+        if not raw <= REL_TOL * scale:
+            raise RuntimeError(f"{name}: streamed raw differs from resident by {raw}")
+        bounds = ((diff.max(), 3e-3),) if name == "wind" else \
+            ((np.quantile(diff, 0.999), 3e-3), (diff.max(), 2e-2))
+        for got, rel in bounds:
+            if not got < rel * scale:
+                raise RuntimeError(f"{name}: int16 vs resident {got} above {rel} * {scale}")
+
+    log("  first 48 h against the plain path on the CPU:")
+    sub = cut.isel_time(0, 48)
+    cpu = Cutout(data=sub.data, grid_desc=sub.grid_desc, attrs=sub.attrs,
+                 var_attrs=sub.var_attrs, device="cpu")
+    cpu_runs = {
+        "wind": cpu.wind(turbine="Vestas_V112_3MW", matrix=matrix, aggregate_time=None),
+        "pv": cpu.pv(panel="CSi", orientation="latitude_optimal", matrix=matrix,
+                     aggregate_time=None),
+    }
+    for name, res in cpu_runs.items():
+        want = np.asarray(res.values)
+        diff = np.abs(out[name, "resident"][:, :48] - want)
+        scale = float(np.abs(want).max())
+        above = int((diff > REL_TOL * scale).sum())
+        log(f"    {name}: max {diff.max():.3e}, p999 {np.quantile(diff, 0.999):.3e}, "
+            f"{above} of {diff.size} entries above {REL_TOL} * max (max |CPU| {scale:.4g})")
+        bounds = ((diff.max(), REL_TOL),) if name == "wind" else \
+            ((np.quantile(diff, 0.999), REL_TOL), (diff.max(), 2e-2))
+        for got, rel in bounds:
+            if not got <= rel * scale:
+                raise RuntimeError(f"{name}: card vs CPU {got} above {rel} * {scale}")
+
+    turbine = get_windturbineconfig("Vestas_V112_3MW", add_cutout_windspeed=False)
+    cf = convert_wind(cut, turbine).values[:CHUNK].reshape(CHUNK, C).contiguous()
+    return cf
+
+
+def bsr_phase(matrix, cf, card):
+    """Phase 11: the BSR entry on the card; returns its kernels entry."""
+    T, C = cf.shape
+    B = matrix.shape[0]
+    bsr = to_bsr(matrix)
+    staged = stage_bsr(bsr, cf.device)
+    K, bb, bc = len(bsr["row_blk"]), bsr["block_b"], bsr["block_c"]
+    log(f"BSR entry: T={T} C={C} B={B}, K={K} blocks of {bb} x {bc}:")
+    wind_pv_bus_megakernel.launches = bsr_spmm_kernel.launches = 0
+    got = bsr_spmm_kernel(staged, cf)
+    torch.cuda.synchronize()
+    launches = bsr_spmm_kernel.launches
+    log(f"  entry path: {launches} launches of bsr_spmm_kernel, "
+        f"{wind_pv_bus_megakernel.launches} of wind_pv_bus_megakernel")
+    if launches < 1:
+        raise RuntimeError("the BSR entry did not launch its kernel")
+    plain = bsr_spmm(staged, cf)
+    err = compare("wind capacity factors, kernel vs plain", got, plain)
+    if not torch.equal(bsr_spmm_kernel(staged, cf), got):
+        raise RuntimeError("a second call gave other bits")
+    log("  a second call repeats the bits")
+
+    rng = np.random.default_rng(5)
+    nan_cf = cf.clone()
+    nan_cf[torch.as_tensor(rng.integers(0, T, 6)), torch.as_tensor(rng.integers(0, C, 6))] = \
+        float("nan")
+    err = max(err, compare("NaN cells (dense-in-block rule)",
+                           bsr_spmm_kernel(staged, nan_cf), bsr_spmm(staged, nan_cf)))
+    empty = matrix.tolil()
+    empty[bb:2 * bb] = 0.0
+    ebsr = stage_bsr(to_bsr(empty.tocsr()), cf.device)
+    eout = bsr_spmm_kernel(ebsr, cf)
+    if not torch.equal(eout[:, bb:2 * bb], torch.zeros_like(eout[:, bb:2 * bb])):
+        raise RuntimeError("the empty row block is not exactly zero")
+    err = max(err, compare("empty row block", eout, bsr_spmm(ebsr, cf)))
+    for rT, rC, rB in BSR_RAGGED:
+        m = sp.random(rB, rC, density=0.02, random_state=rT, format="csr", dtype=np.float32)
+        f = torch.as_tensor(rng.random((rT, rC), dtype=np.float32))
+        rb = to_bsr(m, block_b=8, block_c=256)
+        k_out = bsr_spmm_kernel(rb, f.cuda())
+        err = max(err, compare(f"ragged {(rT, rC, rB)} vs card plain", k_out,
+                               bsr_spmm(rb, f.cuda())),
+                  compare(f"ragged {(rT, rC, rB)} vs CPU plain", k_out, bsr_spmm(rb, f)))
+
+    kernel_ms = cuda_ms(lambda: bsr_spmm_kernel(staged, cf), reps=10)
+    plain_ms = cuda_ms(lambda: bsr_spmm(staged, cf), reps=5, warmup=1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dense = torch.as_tensor(matrix.toarray(), device=cf.device)
+    library_ms = cuda_ms(lambda: cf @ dense.T, reps=5, warmup=1)
+    lib_err = float((cf @ dense.T - got).abs().max())
+    try:
+        pad = bsr["C_pad"] - C
+        a_bsr = torch.nn.functional.pad(dense, (0, pad)).to_sparse_bsr((bb, bc))
+        rhs = torch.nn.functional.pad(cf, (0, pad)).T.contiguous()
+        sparse_ms = cuda_ms(lambda: torch.sparse.mm(a_bsr, rhs), reps=5, warmup=1)
+        sparse_note = f"{sparse_ms:.4f} ms"
+    except (RuntimeError, NotImplementedError) as exc:
+        sparse_ms, sparse_note = None, f"does not run here ({str(exc).splitlines()[0][:120]})"
+    del dense
+    # the work the function needs: a product per nonzero entry in the
+    # blocks (a stored zero only has to pass a NaN on, which a test per
+    # slab does), each input read once and the output written once
+    nnz = int(np.count_nonzero(bsr["blocks"]))
+    n_flops = 2 * nnz * T
+    n_bytes = 4 * (C * T + K * bb * bc + T * B + K + B // bb + 1)
+    flops_ms, bytes_ms = n_flops / FP32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(flops_ms, bytes_ms)
+    log(f"  timing on {card}: kernel {kernel_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({nnz} nonzeros in the blocks, {nnz / (K * bb * bc):.2%} of their entries: "
+        f"{n_flops / 1e9:.4f} GFLOP at 67 TFLOP/s: {flops_ms:.4f} ms; {n_bytes / 1e9:.4f} GB "
+        f"at 3.35 TB/s: {bytes_ms:.4f} ms; the kernel does {2 * K * bb * bc * T / 1e9:.3f} "
+        f"GFLOP, every stored entry); plain {plain_ms:.4f} ms; dense torch.matmul "
+        f"(TF32 off, {2 * B * C * T / 1e9:.1f} GFLOP) {library_ms:.4f} ms, max diff to the "
+        f"kernel {lib_err:.3e}; torch.sparse.mm on to_sparse_bsr({bb}, {bc}): {sparse_note}")
+    return {
+        "name": "bsr_spmm_kernel",
+        "route": "cuda",
+        "source": "atlite_tpu_torch/ops/csrc/bsr_spmm.cu",
+        "replaces": "atlite_tpu/ops/bsr_spmm.py:337",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+        "sparse_bsr_ms": sparse_ms,
+    }
 
 
 def main():
@@ -241,6 +607,10 @@ def main():
     else:
         log("  device time by kernel: not measured (the profiler recorded none)")
 
+    cut, matrix = continental_inputs()
+    cf = continental_path(cut, matrix, card)
+    bsr_entry = bsr_phase(matrix, cf, card)
+
     kernels = [{
         "name": "wind_pv_bus_megakernel",
         "route": "cuda",
@@ -254,7 +624,7 @@ def main():
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": None,
         "matmul_only_ms": matmul_ms,
-    }]
+    }, bsr_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

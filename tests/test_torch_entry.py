@@ -1,6 +1,6 @@
 """The port's headline step against ``jax.jit(__graft_entry__._step_fn())``
 (x64 off, as the JAX package runs on its chip), and the port's
-independence from JAX, the JAX package and pandas.
+independence from JAX, the JAX package, pandas and PyYAML.
 
 Tolerance: rtol 1e-5 / atol 2e-5 on both bus series, NaN masks equal.
 The (24, 16, 32, 4) grid has a row at exactly 50 deg latitude, where the
@@ -24,7 +24,7 @@ from atlite_tpu_torch import entry, from_jax_inputs, step_fn
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-BANNED = ("jax", "jaxlib", "atlite_tpu", "pandas")
+BANNED = ("jax", "jaxlib", "atlite_tpu", "pandas", "yaml")
 
 
 def jax_step(args):
@@ -96,14 +96,27 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
-import torch
+import importlib, pkgutil
+import numpy as np, scipy.sparse as sp, torch
 torch.set_num_threads(1)
 import atlite_tpu_torch
-from atlite_tpu_torch.ops import megakernel
+for mod in pkgutil.walk_packages(atlite_tpu_torch.__path__, "atlite_tpu_torch."):
+    importlib.import_module(mod.name)
+from atlite_tpu_torch.ops import bsr_spmm, megakernel
 step, args = atlite_tpu_torch.entry(device="cpu")
 w, p = step(*args)
 assert w.shape == (24, 4) and bool(torch.isfinite(p).all())
 assert megakernel.wind_pv_bus_megakernel.launches == 0
+c = atlite_tpu_torch.Cutout(device="cpu", module="synthetic", x=slice(-4, 1.5),
+                            y=slice(56, 62), time="2013-01-01").prepare()
+m = sp.random(3, 575, density=0.3, random_state=1, format="csr")
+for kw in (dict(), dict(time_chunk=10, stream_pack="int16")):
+    r = c.wind("Vestas_V112_3MW", matrix=m, aggregate_time=None, **kw)
+    q = c.pv(panel="CSi", orientation="latitude_optimal", matrix=m, aggregate_time=None, **kw)
+    assert r.values.shape == q.values.shape == (3, 24) and np.isfinite(q.values).all()
+f = torch.rand(24, 575)
+assert bsr_spmm.bsr_spmm_kernel(bsr_spmm.to_bsr(m), f).shape == (24, 3)
+assert bsr_spmm.bsr_spmm_kernel.launches == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not loaded, loaded
 print("PORT RUNS ALONE")
@@ -111,6 +124,9 @@ print("PORT RUNS ALONE")
 
 
 def test_port_runs_without_jax_and_pandas():
+    """Every module of the port imports, and the headline step, the
+    Cutout's wind and PV (resident and streamed packed) and the BSR entry
+    run, with jax, atlite_tpu, pandas and yaml refused."""
     out = subprocess.run(
         [sys.executable, "-c", BLOCKER.format(banned=BANNED)],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -134,6 +150,6 @@ def test_no_banned_imports(path):
 
 
 def test_chip_smoke_imports_only_the_port():
-    allowed = {"__future__", "json", "subprocess", "sys", "time", "numpy", "torch",
+    allowed = {"__future__", "json", "re", "subprocess", "sys", "time", "numpy", "scipy", "torch",
                "atlite_tpu_torch"}
     assert set(imported_roots(ROOT / "chip_smoke.py")) <= allowed
