@@ -16,7 +16,7 @@ import torch
 
 from atlite_tpu_torch.core.timeutil import solar_ephemeris
 from atlite_tpu_torch.datasets import synthetic
-from atlite_tpu_torch.ops.megakernel import FIELD_ORDER, wind_pv_bus_megakernel
+from atlite_tpu_torch.ops.megakernel import FIELD_ORDER, knot_table, wind_pv_bus_megakernel
 from atlite_tpu_torch.physics.wind import simplify_power_curve
 
 # the panel of __graft_entry__._step_fn
@@ -95,14 +95,20 @@ def step_fn():
     """The headline step: ``step(fields, eph, lon, lat, V, POWn, matrix) ->
     (wind_bus, pv_bus)``, each (T, B), with the signature of
     ``__graft_entry__._step_fn``.  ``eph`` is unused: the step takes the
-    stored solar angles."""
+    stored solar angles.  The step keeps the kernel's knot table of the
+    power curve it was last given, and builds it again when the curve's
+    tensors are other ones or were written since."""
+    last = {"V": None, "POWn": None, "versions": None, "table": None}
 
     def step(fields, eph, lon, lat, V, POWn, matrix):
         T, Y, X = fields["wnd100m"].shape
         flat = {k: fields[k].reshape(T, Y * X) for k in FIELD_ORDER}
         lat_cell = lat.repeat_interleave(X)
+        versions = (V._version, POWn._version)
+        if last["V"] is not V or last["POWn"] is not POWn or last["versions"] != versions:
+            last.update(V=V, POWn=POWn, versions=versions, table=knot_table(V, POWn))
         return wind_pv_bus_megakernel(flat, lat_cell, matrix, V, POWn, PANEL,
-                                      hub_height=HUB_HEIGHT)
+                                      hub_height=HUB_HEIGHT, table=last["table"])
 
     return step
 

@@ -9,50 +9,76 @@
 // (T, B) bus series with the sparse NaN rule of aggregate.dense_spmm (a NaN
 // cell poisons only the buses whose matrix row is nonzero there).
 //
-// What bounds it on this card: device-memory bytes.  A pass must read nine
-// (T, C) float32 fields once, 36 B per cell-hour (0.97 GB at the bench shape
-// T=2184, C=12288: 0.29 ms at the 3.35 TB/s of an H100 SXM data sheet), and
-// writes only the two (T, B) series.  The arithmetic per cell-hour (seven
-// transcendentals, a scan over ~22 power-curve segments, 2 * 2 * B flops of
-// aggregation) is of the same order on paper, so it is kept off the memory
-// path rather than reduced.
+// What bounds it on this card.  A pass must read nine (T, C) float32 fields
+// once, 36 B a cell-hour (0.97 GB at the bench shape T=2184, C=12288: a
+// 0.289 ms byte bound at 3.35 TB/s).  The physics of a cell-hour (two
+// divisions and two logs for the hub speed, the power-curve search, sin/cos
+// of the sun, a division and a log for the panel) costs a few hundred
+// instructions, so issue and latency, not bytes, set the time: on an H100
+// SXM (NVIDIA H100 80GB HBM3, 700 W; PERF.md) this kernel takes 0.52 ms at
+// the bench shape, 55% of the byte bound, where the same staging with the
+// physics replaced by a sum of the fields takes 0.34 ms; the wind chain
+// costs ~0.18 ms of it, the PV chain ~0.15 ms.  The first design of this
+// kernel (time tiles x cell splits, physics per 32-bus tile, a scan of the
+// power curve) took 1.28 ms, of which the scan cost 0.24 ms and its
+// unbalanced grid 0.38 ms.
 //
 // What the design does about it:
-//   * each field element is read from device memory exactly once; the
-//     capacity factors exist only in shared memory, and no intermediate
-//     (T, C) array is written;
-//   * loads are coalesced along cells (a warp reads 32 neighbouring cells of
-//     one row), and each thread issues the 36 loads of four time rows before
-//     it computes, to keep bytes in flight;
-//   * the grid is (time tiles x cell splits), with enough splits that every
-//     SM holds blocks; each block loops over its cells in chunks, so the
-//     sequential grid axis of the TPU kernel becomes a loop in the block;
-//   * the (time, bus) sums stay in registers; partial sums per split go to a
-//     scratch buffer and a second kernel adds them in a fixed order: no
-//     atomics, so results repeat bit for bit;
-//   * NaN capacity factors are zeroed for the product, and a bit mask per
-//     32 cells (warp ballot) of NaN cells is ANDed with a bit mask of the
-//     matrix's nonzeros to mark touched buses.
+//   a. physics once per cell-hour, whatever B: a unit of work is 8 time rows
+//      x 64 cells; phase 1 computes its two capacity-factor tiles into
+//      shared memory, phase 2 multiplies them by every bus tile in turn;
+//   b. the power curve is found by a branch-free binary search over the
+//      knots (padded by the wrapper to a power of two with +inf), upper-bound
+//      semantics, so membership is [left, right) as in the plain version;
+//   c. fewer transcendentals: the low-influx cutoff (every night-time
+//      cell-hour) is tested before the sun's trigonometry; one sincosf for
+//      the sun's altitude (its sine equals sinf's bit for bit, so the
+//      low-sun cutoff decides as the plain version does); the panel
+//      azimuth is 0 or pi, so cos(az_p - az) is +-cos(az), and the panel
+//      (slope sin/cos, transposition factors) is computed once per cell by
+//      a prologue kernel; the Huld model divides by r_irradiance as a
+//      product with its reciprocal and sums its polynomial with fmaf.  The
+//      hub factor keeps the plain version's two logs and divisions, since it
+//      decides the power-curve segment, but a thread reuses it for its
+//      second row (4 h later) where the cell's roughness has the same bits:
+//      on the bench's static roughness the step takes 0.54 ms, where
+//      roughness that changes every hour in every cell takes 0.58 ms;
+//   d. a balanced persistent grid: a whole number of blocks per SM (four,
+//      32 warps, up to 20 buses a pass; three above), each walking a
+//      contiguous run of units fixed by the wrapper, so that every block
+//      does the same number of units, +-1; a run is cut into items at
+//      time-tile edges, and each item writes its (8, B) partials;
+//   e. the nine field tiles of the next unit (with its panel entries and
+//      first bus tile of the matrix) are staged by cp.async into a ring of
+//      shared-memory stages while the current unit computes.
 //
-// Floating point: float32 throughout with f-suffixed constants, precise
-// logf/sinf/cosf (no fast-math intrinsics), and the build passes
-// -fmad=false so that products and sums round as in the plain PyTorch
-// version; the branch decisions (latitude breakpoints, power-curve segment,
-// low-sun cutoff) then agree with it.  Accumulation uses explicit fmaf.
+// The sums keep a fixed order (per warp over its cells, warps in order,
+// items in order; no atomics), so a second call repeats the bits.  NaN
+// capacity factors are zeroed for the product, and a NaN bit per cell-hour
+// (warp ballot) marks the buses whose matrix entry is nonzero there.
+//
+// Floating point: float32 with f-suffixed constants, precise logf/sincosf/
+// cosf (no fast-math intrinsics); the build passes -fmad=false, so every
+// product and sum rounds as in the plain PyTorch version unless written as
+// fmaf (only the Huld polynomial and the aggregation are); the branch
+// decisions (latitude breakpoints, power-curve segment, cutoff) then agree.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kTimeTile = 32;                   // time rows per block
-constexpr int kCellChunk = 128;                 // cells per chunk: 4 warps x 32
-constexpr int kBusTile = 32;                    // buses per pass: one per lane
-constexpr int kThreads = 256;
+constexpr int kRows = 8;                   // time rows of a unit
+constexpr int kCells = 64;                 // cells of a unit
+constexpr int kThreads = 256;              // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;                 // ring of staged units
+constexpr int kCfPitch = kCells + 4;       // padded row of a capacity-factor tile
+constexpr int kMaxBusTile = 32;            // buses of a pass (4 x NBL)
 constexpr int kMaxKnots = 256;
-constexpr int kRowGroups = kTimeTile / 4;       // float4 groups of time rows
-constexpr int kWords = kCellChunk / 32;         // 32-cell bit words per row
-constexpr int kHalves = kThreads / kCellChunk;  // threads per cell of a chunk
+constexpr int kCellsPerWarp = kCells / kWarps;  // phase 2: cells of a warp
 
 // float32 roundings of the constants the plain version compares against
 constexpr float kDegToRad = 0.017453292f;    // pi / 180
@@ -74,23 +100,40 @@ struct Fields {
 struct Params {
   float hub_height;
   float k1, k2, k3, k4, k5, k6;
-  float c_temp_irrad, c_temp_amb, r_tmod, r_irradiance, inverter_efficiency;
+  float c_temp_irrad, c_temp_amb, r_tmod, inv_r_irradiance, inverter_efficiency;
 };
 
-struct Smem {
-  // capacity factors of a chunk, (cell, time) with the float4 group of
-  // four time rows swizzled: group g of cell c sits at [c][g ^ (c & 7)],
-  // so eight neighbouring cells store to distinct banks
-  float4 cfw[kCellChunk][kRowGroups];
-  float4 cfp[kCellChunk][kRowGroups];
-  float m[kCellChunk][kBusTile + 1];  // matrix tile, (cell, bus), padded
-  uint32_t nan_w[kTimeTile][kWords];  // NaN capacity factors, a bit a cell
-  uint32_t nan_p[kTimeTile][kWords];
-  uint32_t nz[kBusTile][kWords];      // nonzero matrix entries, a bit a cell
-  float knot_v[kMaxKnots];
-  float knot_p[kMaxKnots];
-  float knot_slope[kMaxKnots];
+// one staged unit: the nine field tiles, the panel of each cell and a bus
+// tile of the matrix, each (row-major) as in device memory
+template <int kBusTile>
+struct Stage {
+  float fld[kNumFields][kRows][kCells];
+  float4 panel[kCells];
+  float m[kBusTile][kCells];
 };
+
+// the shared-memory layout of the kernel whose lanes take NBL buses each
+template <int NBL>
+struct Smem {
+  float knot_v[kMaxKnots];         // the search keys, padded with +inf
+  float2 seg[kMaxKnots];           // (power at the knot, slope of its segment)
+  float cf[2][kRows][kCfPitch];    // wind, PV capacity factors of the unit
+  uint32_t nan_bits[2][kRows][kCells / 32];
+  Stage<4 * NBL> stage[kStages];
+};
+
+// the per-warp partials of a bus tile, reduced in flush(); they take the
+// place of the unit's field tiles, which phase 1 has read by then
+template <int NBL>
+using Partials = float[kWarps][2][kRows][4 * NBL];
+static_assert(sizeof(Partials<8>) <= sizeof(float) * kNumFields * kRows * kCells,
+              "the partials must fit a stage's field tiles");
+
+// blocks an SM, which sets the register budget (64 or 80 a thread): four
+// fit the shared memory up to 20 buses a tile (NBL 5), three above; four
+// blocks (32 warps) ran the bench shape 7% faster than three
+template <int NBL>
+constexpr int min_blocks() { return NBL <= 5 ? 4 : 3; }
 
 __device__ __forceinline__ bool is_nan(float x) { return x != x; }
 
@@ -114,263 +157,466 @@ __device__ __forceinline__ float nan_to_num(float x) {
   return x;
 }
 
-// physics/wind.py: extrapolate_wind_speed (log law, 100 m -> hub) then
-// power_curve: [left, right) segments, clamps outside, NaN stays NaN
-__device__ __forceinline__ float wind_cf(float wnd100, float z0, const Params& prm,
-                                         const Smem& s, int n_seg) {
-  const float hub = wnd100 * (logf(prm.hub_height / z0) / logf(100.0f / z0));
-  if (is_nan(hub)) return hub;
-  float out = 0.0f;
-  for (int k = 0; k < n_seg; ++k) {
-    const float left = s.knot_v[k];
-    if (hub >= left && hub < s.knot_v[k + 1])
-      out = out + (s.knot_p[k] + (hub - left) * s.knot_slope[k]);
-  }
-  if (hub < s.knot_v[0]) out = out + s.knot_p[0];
-  if (hub >= s.knot_v[n_seg]) out = out + s.knot_p[n_seg];
-  return out;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
 }
 
-struct Panel {
-  float sin_slope, cos_slope, cos_az, sin_az;
-};
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
 
-// physics/orientation.py: orientation_fields, latitude_optimal
-__device__ __forceinline__ Panel latitude_optimal(float lat_deg) {
-  const float latr = lat_deg * kDegToRad;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// physics/orientation.py: orientation_fields, latitude_optimal; then the
+// cell's factors of physics/orientation.py surface_orientation and
+// physics/irradiation.py tilted_irradiation: (sin(slope) * cos(az_p),
+// cos(slope), (1 + cos(slope)) / 2, (1 - cos(slope)) / 2).  cos(az_p) is
+// +-1 exactly; the sin(az_p) * sin(az) term of cos(az_p - az) (sin(pi) is
+// -8.7e-8 in float32) is dropped.
+__global__ void panel_kernel(const float* __restrict__ lat, int C, float4* __restrict__ panel) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const float latr = lat[c] * kDegToRad;
   const float a = fabsf(latr);
-  const float slope = a <= kRad25 ? 0.87f * a
-                    : (a <= kRad50 ? 0.76f * a + kRad031 : kRad40);
+  const float slope = a <= kRad25 ? 0.87f * a : (a <= kRad50 ? 0.76f * a + kRad031 : kRad40);
   const float az = latr < 0.0f ? 0.0f : kPi;
-  return {sinf(slope), cosf(slope), cosf(az), sinf(az)};
+  const float cs = cosf(slope);
+  panel[c] = make_float4(sinf(slope) * cosf(az), cs, (1.0f + cs) / 2.0f, (1.0f - cs) / 2.0f);
+}
+
+// physics/wind.py extrapolate_wind_speed: the log law's factor from 100 m
+// to the hub, as the plain version rounds it (a 100 m hub is the field
+// itself: factor 1)
+__device__ __forceinline__ float hub_factor(float z0, float hub_height) {
+  return hub_height == 100.0f ? 1.0f : logf(hub_height / z0) / logf(100.0f / z0);
+}
+
+// physics/wind.py power_curve at the hub speed: [left, right) segments,
+// clamped outside, NaN stays NaN.  `n_pad` is the knots' count padded to a
+// power of two, `n_knots` the real count.
+template <typename S>
+__device__ __forceinline__ float wind_cf(float hub, const S& s, int n_pad, int n_knots) {
+  if (is_nan(hub)) return hub;
+  // pos = number of knots <= hub (upper bound), log2(n_pad) + 1 compares;
+  // the +inf padding is <= no finite hub
+  int pos = 0;
+#pragma unroll
+  for (int step = kMaxKnots / 2; step > 0; step >>= 1)
+    if (step < n_pad) pos += s.knot_v[pos + step - 1] <= hub ? step : 0;
+  pos += s.knot_v[pos] <= hub ? 1 : 0;
+  const int k = pos - 1;
+  if (k < 0) return (0.0f + 0.0f) + s.seg[0].x;                      // below V[0]
+  if (k >= n_knots - 1) return (0.0f + 0.0f) + s.seg[n_knots - 1].x;  // at or above V[-1]
+  const float2 g = s.seg[k];
+  return 0.0f + (g.x + (hub - s.knot_v[k]) * g.y);
 }
 
 // physics/orientation.py surface_orientation (tracking None) ->
 // physics/irradiation.py tilted_irradiation (simple, direct/diffuse) ->
-// physics/pv.py power_huld
-__device__ __forceinline__ float pv_cf(const float (&v)[kNumFields], const Panel& pn,
+// physics/pv.py power_huld; 0 where the cutoff holds, as the plain version
+// gives there
+__device__ __forceinline__ float pv_cf(float alt, float az, float toa, float dir, float dif,
+                                       float alb, float temp, const float4& pn,
                                        const Params& prm) {
-  const float sin_alt = sinf(v[ALT]), cos_alt = cosf(v[ALT]);
-  const float sin_az = sinf(v[AZ]), cos_az = cosf(v[AZ]);
-  const float cos_rel = pn.cos_az * cos_az + pn.sin_az * sin_az;
-  const float cosinc =
-      clamp_min(pn.sin_slope * cos_alt * cos_rel + pn.cos_slope * sin_alt, 0.0f);
-
-  const float toa = v[TOA];
-  const float direct = nan_min(clamp_min(v[DIR], 0.0f), toa);
-  const float diffuse = nan_min(clamp_min(v[DIF], 0.0f), toa - direct);
-  const float k_geom = cosinc / sin_alt;
+  const float direct = nan_min(clamp_min(dir, 0.0f), toa);
+  const float diffuse = nan_min(clamp_min(dif, 0.0f), toa - direct);
   const float influx = direct + diffuse;
-  const float direct_t = k_geom * direct;
-  const float diffuse_t = (1.0f + pn.cos_slope) / 2.0f * diffuse;
-  const float ground_t = v[ALB] * influx * ((1.0f - pn.cos_slope) / 2.0f);
-  const float total = nan_to_num(direct_t) + nan_to_num(diffuse_t) + nan_to_num(ground_t);
-  const float irr = (sin_alt < kSinOneDegree || influx <= 0.01f) ? 0.0f : total;
+  if (influx <= 0.01f) return 0.0f;  // every night-time cell-hour
+  float sin_alt, cos_alt;
+  sincosf(alt, &sin_alt, &cos_alt);
+  if (sin_alt < kSinOneDegree) return 0.0f;
 
-  const float T_ = (prm.c_temp_amb * v[TEMP] + prm.c_temp_irrad * irr) - prm.r_tmod;
-  const float G_ = irr / prm.r_irradiance;
+  const float cosinc = clamp_min(pn.x * cos_alt * cosf(az) + pn.y * sin_alt, 0.0f);
+  const float k_geom = cosinc / sin_alt;
+  const float direct_t = k_geom * direct;
+  const float diffuse_t = pn.z * diffuse;
+  const float ground_t = alb * influx * pn.w;
+  const float irr = nan_to_num(direct_t) + nan_to_num(diffuse_t) + nan_to_num(ground_t);
+
+  const float T_ = fmaf(prm.c_temp_amb, temp, prm.c_temp_irrad * irr) - prm.r_tmod;
+  const float G_ = irr * prm.inv_r_irradiance;
   const float L = logf(G_ > 0.0f ? G_ : qnan());
-  const float eff = 1.0f + prm.k1 * L + prm.k2 * (L * L)
-                  + T_ * (prm.k3 + prm.k4 * L + prm.k5 * (L * L)) + prm.k6 * (T_ * T_);
+  const float inner = fmaf(fmaf(prm.k5, L, prm.k4), L, prm.k3);
+  const float eff = fmaf(T_, fmaf(prm.k6, T_, inner), fmaf(fmaf(prm.k2, L, prm.k1), L, 1.0f));
   return G_ * clamp_min(nan_to_num(eff), 0.0f) * prm.inverter_efficiency;
 }
 
-// Block (time tile, cell split): for each bus tile, loop over the split's
-// cells in chunks; phase 1 computes both capacity factors of the chunk into
-// shared memory, phase 2 multiplies them by the matrix tile.  Writes the
-// split's partial (T, B) sums.
-__global__ void __launch_bounds__(kThreads)
-wind_pv_bus_kernel(Fields F, const float* __restrict__ lat, const float* __restrict__ mat,
-                   const float* __restrict__ knot_v, const float* __restrict__ knot_p,
-                   const float* __restrict__ knot_slope, int n_knots, int T, int C, int B,
-                   int cells_per_split, Params prm, float* __restrict__ part_w,
-                   float* __restrict__ part_p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+struct Work {
+  Fields F;
+  const float4* panel;  // (C,) from panel_kernel
+  const float* mat;     // (B, C)
+  int T, C, B, n_cb;    // n_cb: 64-cell chunks of C
+  bool vec;             // C % 4 == 0 and 16-byte aligned rows: 16-byte copies
+};
 
+// stage unit u (time tile u / n_cb, cell chunk u % n_cb) into `st`, with
+// the bus tile starting at b0 (`with_fields` false: the bus tile alone);
+// rows past T, cells past C and buses past B read as zero
+template <int kBusTile>
+__device__ __forceinline__ void stage_unit(const Work& w, int u, int b0, bool with_fields,
+                                           Stage<kBusTile>& st) {
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int t0 = blockIdx.x * kTimeTile;
-  const int split = blockIdx.y;
-  const int c_begin = split * cells_per_split;
-  const int c_end = min(C, c_begin + cells_per_split);
-  const int n_seg = n_knots - 1;
-
-  for (int k = tid; k < n_knots; k += kThreads) {
-    s.knot_v[k] = knot_v[k];
-    s.knot_p[k] = knot_p[k];
-    if (k < n_seg) s.knot_slope[k] = knot_slope[k];
-  }
-  __syncthreads();
-
-  const int cell = tid % kCellChunk;  // phase 1: one cell of the chunk
-  const int half = tid / kCellChunk;  // ... and every kHalves-th row group
-  const int word = cell / 32;
-  const int quad = tid / 32;          // phase 2: rows 4*quad..4*quad+3, bus = lane
-
-  for (int b0 = 0; b0 < B; b0 += kBusTile) {
-    float acc_w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float acc_p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    bool touched_w[4] = {false, false, false, false};
-    bool touched_p[4] = {false, false, false, false};
-
-    for (int c0 = c_begin; c0 < c_end; c0 += kCellChunk) {
-      const int c = c0 + cell;
-      const bool c_ok = c < c_end;
-      const Panel pn = latitude_optimal(c_ok ? lat[c] : 0.0f);
-
-      // ---- phase 1: capacity factors, four time rows at a time
-      for (int g = half; g < kRowGroups; g += kHalves) {
-        float v[4][kNumFields];
+  const int t0 = (u / w.n_cb) * kRows;
+  const int c0 = (u % w.n_cb) * kCells;
+  if (w.vec) {
+    constexpr int kVecs = kCells / 4;  // 16-byte pieces of a row: 128 a field
+    if (with_fields) {
+      // threads 0-127 stage the even fields, 128-255 the odd ones; the
+      // field index stays a compile-time constant (no copy of the
+      // parameters to local memory)
+      const int odd = tid / (kRows * kVecs), r = (tid / kVecs) % kRows, v = tid % kVecs;
+      const int t = t0 + r, c = c0 + 4 * v;
+      const bool ok = t < w.T && c < w.C;
+      const size_t at = ok ? static_cast<size_t>(t) * w.C + c : 0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = t0 + 4 * g + j;
-          const bool ok = c_ok && t < T;
-          const size_t idx = static_cast<size_t>(t) * C + c;
-#pragma unroll
-          for (int f = 0; f < kNumFields; ++f) v[j][f] = ok ? __ldg(F.f[f] + idx) : 0.0f;
-        }
-        float w[4], p[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool ok = c_ok && t0 + 4 * g + j < T;
-          const float cw = ok ? wind_cf(v[j][WND], v[j][ROUGH], prm, s, n_seg) : 0.0f;
-          const float cp = ok ? pv_cf(v[j], pn, prm) : 0.0f;
-          const uint32_t bw = __ballot_sync(0xffffffffu, is_nan(cw));
-          const uint32_t bp = __ballot_sync(0xffffffffu, is_nan(cp));
-          if (lane == 0) {
-            s.nan_w[4 * g + j][word] = bw;
-            s.nan_p[4 * g + j][word] = bp;
-          }
-          w[j] = is_nan(cw) ? 0.0f : cw;
-          p[j] = is_nan(cp) ? 0.0f : cp;
-        }
-        s.cfw[cell][g ^ (cell & 7)] = make_float4(w[0], w[1], w[2], w[3]);
-        s.cfp[cell][g ^ (cell & 7)] = make_float4(p[0], p[1], p[2], p[3]);
+      for (int f = 0; f < kNumFields; f += 2) {
+        if (odd && f + 1 >= kNumFields) break;
+        const float* src = (odd ? w.F.f[f + 1 < kNumFields ? f + 1 : f] : w.F.f[f]) + at;
+        cp_async16(&st.fld[f + odd][r][4 * v], src, ok);
       }
-
-      // ---- matrix tile and its nonzero bits
-      for (int bl = half; bl < kBusTile; bl += kHalves) {
-        const int b = b0 + bl;
-        const float m = (c_ok && b < B) ? __ldg(mat + static_cast<size_t>(b) * C + c) : 0.0f;
-        s.m[cell][bl] = m;
-        const uint32_t bits = __ballot_sync(0xffffffffu, m != 0.0f);
-        if (lane == 0) s.nz[bl][word] = bits;
+      for (int q = tid; q < kCells; q += kThreads) {
+        const bool ok = c0 + q < w.C;
+        cp_async16(&st.panel[q], w.panel + (ok ? c0 + q : 0), ok);
       }
-      __syncthreads();
-
-      // ---- phase 2: (4 rows) x (1 bus) partial sums over the chunk
-      float cw[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float cp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-      for (int k = 0; k < kCellChunk; ++k) {
-        const float4 w = s.cfw[k][quad ^ (k & 7)];
-        const float4 p = s.cfp[k][quad ^ (k & 7)];
-        const float m = s.m[k][lane];
-        cw[0] = fmaf(w.x, m, cw[0]);
-        cw[1] = fmaf(w.y, m, cw[1]);
-        cw[2] = fmaf(w.z, m, cw[2]);
-        cw[3] = fmaf(w.w, m, cw[3]);
-        cp[0] = fmaf(p.x, m, cp[0]);
-        cp[1] = fmaf(p.y, m, cp[1]);
-        cp[2] = fmaf(p.z, m, cp[2]);
-        cp[3] = fmaf(p.w, m, cp[3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc_w[j] += cw[j];
-        acc_p[j] += cp[j];
-        uint32_t hit_w = 0, hit_p = 0;
-#pragma unroll
-        for (int q = 0; q < kWords; ++q) {
-          hit_w |= s.nan_w[4 * quad + j][q] & s.nz[lane][q];
-          hit_p |= s.nan_p[4 * quad + j][q] & s.nz[lane][q];
-        }
-        touched_w[j] = touched_w[j] || hit_w != 0;
-        touched_p[j] = touched_p[j] || hit_p != 0;
-      }
-      __syncthreads();
     }
-
-    const int b = b0 + lane;
+    for (int q = tid; q < kBusTile * kVecs; q += kThreads) {
+      const int b = b0 + q / kVecs, c = c0 + 4 * (q % kVecs);
+      const bool ok = b < w.B && c < w.C;
+      cp_async16(&st.m[q / kVecs][4 * (q % kVecs)],
+                 w.mat + (ok ? static_cast<size_t>(b) * w.C + c : 0), ok);
+    }
+  } else {
+    if (with_fields) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = t0 + 4 * quad + j;
-      if (t < T && b < B) {
-        const size_t o = (static_cast<size_t>(split) * T + t) * B + b;
-        part_w[o] = touched_w[j] ? qnan() : acc_w[j];
-        part_p[o] = touched_p[j] ? qnan() : acc_p[j];
+      for (int h = 0; h < kRows * kCells / kThreads; ++h) {
+        const int q = tid + h * kThreads, r = q / kCells, cc = q % kCells;
+        const int t = t0 + r, c = c0 + cc;
+        const bool ok = t < w.T && c < w.C;
+        const size_t at = ok ? static_cast<size_t>(t) * w.C + c : 0;
+#pragma unroll
+        for (int f = 0; f < kNumFields; ++f) cp_async4(&st.fld[f][r][cc], w.F.f[f] + at, ok);
       }
+      for (int q = tid; q < kCells; q += kThreads) {
+        const bool ok = c0 + q < w.C;
+        cp_async16(&st.panel[q], w.panel + (ok ? c0 + q : 0), ok);
+      }
+    }
+    for (int q = tid; q < kBusTile * kCells; q += kThreads) {
+      const int b = b0 + q / kCells, c = c0 + q % kCells;
+      const bool ok = b < w.B && c < w.C;
+      cp_async4(&st.m[q / kCells][q % kCells],
+                w.mat + (ok ? static_cast<size_t>(b) * w.C + c : 0), ok);
     }
   }
 }
 
-// out = sum over splits of the partials, in split order (a NaN partial
-// makes the bus NaN)
-__global__ void sum_splits_kernel(const float* __restrict__ part_w,
-                                  const float* __restrict__ part_p, int splits, long long n,
-                                  float* __restrict__ out_w, float* __restrict__ out_p) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float w = part_w[i], p = part_p[i];
-  for (int sp = 1; sp < splits; ++sp) {
-    w += part_w[sp * n + i];
-    p += part_p[sp * n + i];
+// add the warps' partials of one bus tile in warp order and write (first
+// unit of an item) or add them to the item's (8, B) partials
+template <int NBL>
+__device__ __forceinline__ void flush(Stage<4 * NBL>& st, const float (&acc_w)[NBL],
+                                      const float (&acc_p)[NBL], uint32_t hit_w,
+                                      uint32_t hit_p, float* __restrict__ part, int n_items,
+                                      int item, int t0, int b0, int T, int B, bool first) {
+  constexpr int kBusTile = 4 * NBL;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r = lane & 7, g = lane >> 3;
+  Partials<NBL>& red = *reinterpret_cast<Partials<NBL>*>(&st.fld[0][0][0]);
+#pragma unroll
+  for (int j = 0; j < NBL; ++j) {
+    red[warp][0][r][g + 4 * j] = (hit_w >> j) & 1u ? qnan() : acc_w[j];
+    red[warp][1][r][g + 4 * j] = (hit_p >> j) & 1u ? qnan() : acc_p[j];
   }
-  out_w[i] = w;
-  out_p[i] = p;
+  __syncthreads();
+  for (int o = tid; o < 2 * kRows * kBusTile; o += kThreads) {
+    const int cf = o / (kRows * kBusTile), rr = (o / kBusTile) % kRows, b = o % kBusTile;
+    float sum = red[0][cf][rr][b];
+#pragma unroll
+    for (int wp = 1; wp < kWarps; ++wp) sum += red[wp][cf][rr][b];
+    if (t0 + rr < T && b0 + b < B) {
+      float* dst = part + ((static_cast<size_t>(cf) * n_items + item) * kRows + rr) * B + b0 + b;
+      *dst = first ? sum : *dst + sum;
+    }
+  }
+  __syncthreads();
+}
+
+// The persistent kernel.  Block k walks units [block_unit[k],
+// block_unit[k+1]); its first item is block_item[k], and a new item starts
+// at every time tile's first chunk.  part: (2, n_items, 8, B).
+template <int NBL>
+__global__ void __launch_bounds__(kThreads, min_blocks<NBL>())
+wind_pv_bus_kernel(Work w, const float4* __restrict__ table, int n_pad, int n_knots,
+                   const int* __restrict__ block_unit, const int* __restrict__ block_item,
+                   Params prm, int n_items, float* __restrict__ part) {
+  constexpr int kBusTile = 4 * NBL;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<NBL>& s = *reinterpret_cast<Smem<NBL>*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ub = block_unit[blockIdx.x], ue = block_unit[blockIdx.x + 1];
+  if (ub >= ue) return;
+  const int n_bus_tiles = (w.B + kBusTile - 1) / kBusTile;
+
+  for (int k = tid; k < n_pad; k += kThreads) {
+    const float4 g = table[k];
+    s.knot_v[k] = g.x;
+    s.seg[k] = make_float2(g.y, g.z);
+  }
+
+  // ring prologue: the first kStages - 1 units
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (ub + i < ue) stage_unit(w, ub + i, 0, true, s.stage[i]);
+    cp_async_commit();
+  }
+
+  // phase 1: cell c1 of the unit, rows r1 and r1 + 4
+  const int c1 = tid % kCells, r1 = tid / kCells;
+  // phase 2: row r2, buses g2 + 4 j, cells kCellsPerWarp * warp + ...
+  const int r2 = lane & 7, g2 = lane >> 3;
+  const int k2 = kCellsPerWarp * warp;
+
+  float acc_w[NBL] = {}, acc_p[NBL] = {};
+  uint32_t hit_w = 0, hit_p = 0;
+  int item = block_item[blockIdx.x] - 1;
+
+  for (int u = ub; u < ue; ++u) {
+    const int nxt = u + kStages - 1;
+    if (nxt < ue) stage_unit(w, nxt, 0, true, s.stage[(nxt - ub) % kStages]);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+
+    Stage<kBusTile>& st = s.stage[(u - ub) % kStages];
+    const int cb = u % w.n_cb;
+    const int t0 = (u / w.n_cb) * kRows;
+    const bool first = u == ub || cb == 0;
+    const bool last = u + 1 == ue || cb == w.n_cb - 1;
+    if (first) ++item;
+
+    // ---- phase 1: both capacity factors of the unit, once
+    {
+      const float4 pn = st.panel[c1];
+      const bool c_ok = cb * kCells + c1 < w.C;
+      // the second row's hub factor is the first's where the roughness has
+      // the same bits (a static field, or land in ERA5); else its own
+      const float z0a = st.fld[ROUGH][r1][c1], z0b = st.fld[ROUGH][r1 + 4][c1];
+      const float fa = hub_factor(z0a, prm.hub_height);
+      const float factor[2] = {
+          fa, __float_as_uint(z0b) == __float_as_uint(z0a) ? fa : hub_factor(z0b, prm.hub_height)};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r1 + 4 * h;
+        const bool ok = c_ok && t0 + r < w.T;
+        float cw = 0.0f, cp = 0.0f;
+        if (ok) {
+          cw = wind_cf(st.fld[WND][r][c1] * factor[h], s, n_pad, n_knots);
+          cp = pv_cf(st.fld[ALT][r][c1], st.fld[AZ][r][c1], st.fld[TOA][r][c1],
+                     st.fld[DIR][r][c1], st.fld[DIF][r][c1], st.fld[ALB][r][c1],
+                     st.fld[TEMP][r][c1], pn, prm);
+        }
+        const uint32_t bw = __ballot_sync(0xffffffffu, is_nan(cw));
+        const uint32_t bp = __ballot_sync(0xffffffffu, is_nan(cp));
+        if (lane == 0) {
+          s.nan_bits[0][r][c1 / 32] = bw;
+          s.nan_bits[1][r][c1 / 32] = bp;
+        }
+        s.cf[0][r][c1] = is_nan(cw) ? 0.0f : cw;
+        s.cf[1][r][c1] = is_nan(cp) ? 0.0f : cp;
+      }
+    }
+    __syncthreads();
+
+    // ---- phase 2: every bus tile against the unit's capacity factors
+    const uint32_t nan_w = (s.nan_bits[0][r2][k2 / 32] >> (k2 % 32)) & 0xffu;
+    const uint32_t nan_p = (s.nan_bits[1][r2][k2 / 32] >> (k2 % 32)) & 0xffu;
+    for (int bt = 0; bt < n_bus_tiles; ++bt) {
+      if (bt > 0) {  // the first bus tile came with the stage
+        stage_unit(w, u, bt * kBusTile, false, st);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      if (n_bus_tiles > 1 || first) {
+#pragma unroll
+        for (int j = 0; j < NBL; ++j) acc_w[j] = acc_p[j] = 0.0f;
+        hit_w = hit_p = 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kCellsPerWarp; k += 4) {
+        const float4 fw = *reinterpret_cast<const float4*>(&s.cf[0][r2][k2 + k]);
+        const float4 fp = *reinterpret_cast<const float4*>(&s.cf[1][r2][k2 + k]);
+#pragma unroll
+        for (int j = 0; j < NBL; ++j) {
+          const float4 m = *reinterpret_cast<const float4*>(&st.m[g2 + 4 * j][k2 + k]);
+          acc_w[j] = fmaf(fw.x, m.x, acc_w[j]);
+          acc_w[j] = fmaf(fw.y, m.y, acc_w[j]);
+          acc_w[j] = fmaf(fw.z, m.z, acc_w[j]);
+          acc_w[j] = fmaf(fw.w, m.w, acc_w[j]);
+          acc_p[j] = fmaf(fp.x, m.x, acc_p[j]);
+          acc_p[j] = fmaf(fp.y, m.y, acc_p[j]);
+          acc_p[j] = fmaf(fp.z, m.z, acc_p[j]);
+          acc_p[j] = fmaf(fp.w, m.w, acc_p[j]);
+        }
+      }
+      if (nan_w | nan_p) {  // rare: mark buses touching a NaN cell-hour
+        for (int k = 0; k < kCellsPerWarp; ++k) {
+#pragma unroll
+          for (int j = 0; j < NBL; ++j) {
+            const bool nz = st.m[g2 + 4 * j][k2 + k] != 0.0f;
+            hit_w |= static_cast<uint32_t>(nz && ((nan_w >> k) & 1u)) << j;
+            hit_p |= static_cast<uint32_t>(nz && ((nan_p >> k) & 1u)) << j;
+          }
+        }
+      }
+      if (n_bus_tiles > 1)
+        flush<NBL>(st, acc_w, acc_p, hit_w, hit_p, part, n_items, item, t0, bt * kBusTile,
+                   w.T, w.B, first);
+    }
+    if (n_bus_tiles == 1 && last)
+      flush<NBL>(st, acc_w, acc_p, hit_w, hit_p, part, n_items, item, t0, 0, w.T, w.B, true);
+    __syncthreads();  // the stage and the capacity factors are reused
+  }
+  cp_async_wait<0>();
+}
+
+// out[t][b] = sum over the items of t's time tile of their partials, in
+// item order (a NaN partial makes the bus NaN)
+__global__ void sum_items_kernel(const float* __restrict__ part, int n_items,
+                                 const int* __restrict__ tile_item, int T, int B,
+                                 float* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long n = static_cast<long long>(T) * B;
+  if (i >= n) return;
+  const int t = static_cast<int>(i / B), b = static_cast<int>(i % B);
+  const int tt = t / kRows, r = t % kRows;
+  const size_t plane = static_cast<size_t>(n_items) * kRows * B;
+  float sw = 0.0f, sp = 0.0f;
+  for (int it = tile_item[tt]; it < tile_item[tt + 1]; ++it) {
+    const size_t o = (static_cast<size_t>(it) * kRows + r) * B + b;
+    sw += part[o];
+    sp += part[plane + o];
+  }
+  out[i] = sw;
+  out[n + i] = sp;
+}
+
+template <int NBL>
+cudaError_t prepare(int* blocks_per_sm, int* smem_bytes) {
+  cudaError_t err = cudaFuncSetAttribute(wind_pv_bus_kernel<NBL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(sizeof(Smem<NBL>)));
+  if (err != cudaSuccess || blocks_per_sm == nullptr) return err;
+  *smem_bytes = static_cast<int>(sizeof(Smem<NBL>));
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wind_pv_bus_kernel<NBL>,
+                                                       kThreads, sizeof(Smem<NBL>));
+}
+
+// buses of a lane: 4 lanes per row share a tile of 4 * NBL buses; 20
+// buses a pass up to B = 20 (four blocks an SM), 32 above (three)
+constexpr int kNarrowNbl = 5;
+int lane_buses(int B) { return B <= 4 * kNarrowNbl ? kNarrowNbl : kMaxBusTile / 4; }
+
+template <int NBL>
+cudaError_t launch(int n_blocks, const Work& w, const float4* table, int n_pad, int n_knots,
+                   const int* block_unit, const int* block_item, const Params& prm,
+                   int n_items, float* part, cudaStream_t st) {
+  cudaError_t err = prepare<NBL>(nullptr, nullptr);
+  if (err != cudaSuccess) return err;
+  wind_pv_bus_kernel<NBL><<<n_blocks, kThreads, sizeof(Smem<NBL>), st>>>(
+      w, table, n_pad, n_knots, block_unit, block_item, prm, n_items, part);
+  return cudaGetLastError();
+}
+
+template <typename Fn>
+cudaError_t dispatch(int nbl, Fn&& fn) {
+  return nbl == kNarrowNbl ? fn(std::integral_constant<int, kNarrowNbl>())
+                           : fn(std::integral_constant<int, kMaxBusTile / 4>());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Cell splits of the grid for T x C cells on a card with `sms` SMs: enough
-// for two blocks per SM, at most one per chunk of cells.  The wrapper
-// sizes the (splits, T, B) scratch with it.
-int wind_pv_bus_splits(int T, int C, int sms) {
-  const int n_time = (T + kTimeTile - 1) / kTimeTile;
-  const int n_chunks = (C + kCellChunk - 1) / kCellChunk;
-  const int want = (2 * sms + n_time - 1) / n_time;
-  return want < 1 ? 1 : (want < n_chunks ? want : n_chunks);
-}
-
-// Launch both kernels on `stream` (a cudaStream_t, as PyTorch's current
-// stream); returns cudaGetLastError() after the launches, 0 on success.
-// fields: nine (T, C) float32 arrays in FIELD_ORDER; lat (C,); mat (B, C);
-// knots (n_knots,) with slopes (n_knots - 1,); params: 12 floats in the
-// order of Params; part_w/part_p: (splits, T, B) scratch; out: (T, B).
-int wind_pv_bus_launch(int device, const float* const* fields, const float* lat,
-                       const float* mat, const float* knot_v, const float* knot_p,
-                       const float* knot_slope, int n_knots, int T, int C, int B, int splits,
-                       const float* params, float* part_w, float* part_p, float* out_w,
-                       float* out_p, void* stream) {
-  if (n_knots < 2 || n_knots > kMaxKnots || T < 1 || C < 1 || B < 1 || splits < 1)
+// Resident blocks an SM of `device` holds of the kernel that takes B
+// buses, its shared memory a block and the buses of its pass; the wrapper
+// launches a whole number of blocks per SM.
+int wind_pv_bus_occupancy(int device, int B, int* blocks_per_sm, int* smem_bytes,
+                          int* bus_tile) {
+  if (B < 1 || blocks_per_sm == nullptr || smem_bytes == nullptr || bus_tile == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_chunks = (C + kCellChunk - 1) / kCellChunk;
-  const int cells_per_split = (n_chunks + splits - 1) / splits * kCellChunk;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(wind_pv_bus_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(sizeof(Smem)));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  *bus_tile = 4 * lane_buses(B);
+  return static_cast<int>(dispatch(lane_buses(B), [&](auto nbl) {
+    return prepare<decltype(nbl)::value>(blocks_per_sm, smem_bytes);
+  }));
+}
 
-  Fields F;
-  for (int f = 0; f < kNumFields; ++f) F.f[f] = fields[f];
-  const Params prm = {params[0], params[1], params[2], params[3],  params[4],  params[5],
-                      params[6], params[7], params[8], params[9], params[10], params[11]};
+// Launch the panel prologue, the fused kernel and the item sums on `stream`
+// (a cudaStream_t, as PyTorch's current stream); returns cudaGetLastError()
+// after the launches, 0 on success.
+// fields: nine (T, C) float32 arrays in FIELD_ORDER; lat (C,); mat (B, C);
+// table (n_pad, 4): knots padded with +inf, their powers and the slopes of
+// the segments they start; block_unit (n_blocks + 1), block_item (n_blocks),
+// tile_item (ceil(T / 8) + 1): the work split of ops/megakernel.py;
+// params: 12 floats in the order of Params; panel: (C, 4) scratch; part:
+// (2, n_items, 8, B) scratch; out: (2, T, B).
+int wind_pv_bus_launch(int device, const float* const* fields, const float* lat,
+                       const float* mat, const float* table, int n_pad, int n_knots, int T,
+                       int C, int B, const int* block_unit, const int* block_item,
+                       const int* tile_item, int n_blocks, int n_items, const float* params,
+                       float* panel, float* part, float* out, void* stream) {
+  if (n_knots < 2 || n_knots > n_pad || n_pad > kMaxKnots || (n_pad & (n_pad - 1)) != 0 ||
+      T < 1 || C < 1 || B < 1 || n_blocks < 1 || n_items < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  const dim3 grid((T + kTimeTile - 1) / kTimeTile, splits);
-  wind_pv_bus_kernel<<<grid, kThreads, sizeof(Smem), st>>>(
-      F, lat, mat, knot_v, knot_p, knot_slope, n_knots, T, C, B, cells_per_split, prm, part_w,
-      part_p);
+  Work w;
+  bool aligned = (reinterpret_cast<uintptr_t>(mat) & 15u) == 0;
+  for (int f = 0; f < kNumFields; ++f) {
+    w.F.f[f] = fields[f];
+    aligned = aligned && (reinterpret_cast<uintptr_t>(fields[f]) & 15u) == 0;
+  }
+  w.panel = reinterpret_cast<const float4*>(panel);
+  w.mat = mat;
+  w.T = T;
+  w.C = C;
+  w.B = B;
+  w.n_cb = (C + kCells - 1) / kCells;
+  w.vec = aligned && C % 4 == 0;
+  const Params prm = {params[0], params[1], params[2], params[3],  params[4],  params[5],
+                      params[6], params[7], params[8], params[9], params[10], params[11]};
+
+  panel_kernel<<<(C + 255) / 256, 256, 0, st>>>(lat, C, reinterpret_cast<float4*>(panel));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  err = dispatch(lane_buses(B), [&](auto nbl) {
+    return launch<decltype(nbl)::value>(n_blocks, w, reinterpret_cast<const float4*>(table),
+                                        n_pad, n_knots, block_unit, block_item, prm, n_items,
+                                        part, st);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+
   const long long n = static_cast<long long>(T) * B;
-  sum_splits_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      part_w, part_p, splits, n, out_w, out_p);
+  sum_items_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(part, n_items,
+                                                                           tile_item, T, B, out);
   return static_cast<int>(cudaGetLastError());
 }
 

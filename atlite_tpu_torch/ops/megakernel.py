@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from atlite_tpu_torch import aggregate
@@ -88,21 +89,102 @@ def _check(fields, lat_cell, matrix, V, POWn):
     return T, C, matrix.shape[0], device
 
 
+# the kernel's unit of work (kRows x kCells of csrc/megakernel.cu): a
+# block walks units of 8 time rows x 64 cells
+UNIT_ROWS = 8
+UNIT_CELLS = 64
+
+
+def knot_table(V, POWn):
+    """The power-curve table the kernel searches: (P, 4) float32, P the
+    knot count rounded up to a power of two.  Row k holds (V[k], POWn[k],
+    slope of the segment [V[k], V[k+1]), 0); rows past the knots hold
+    (+inf, 0, 0, 0), so an upper-bound search over column 0 counts the
+    knots <= a query in log2(P) + 1 compares.  A zero-width segment (a
+    duplicated knot) gets slope 0: no query falls in it."""
+    K = V.shape[0]
+    P = 1 << (K - 1).bit_length()
+    left, right, _, slope = wind.curve_segments(V, POWn)
+    table = torch.zeros((P, 4), dtype=V.dtype, device=V.device)
+    table[:, 0] = float("inf")
+    table[:K, 0] = V
+    table[:K, 1] = POWn
+    table[:K - 1, 2] = torch.where(right == left, 0.0, slope)
+    return table
+
+
+def work_split(T, C, n_blocks):
+    """The persistent grid's work: units are (time tile, 64-cell chunk)
+    in row-major order, U = ceil(T / 8) * ceil(C / 64) of them; block k
+    takes the contiguous run [block_unit[k], block_unit[k+1]), so that
+    runs differ by at most one unit.  Runs are cut into items at time-tile
+    edges: item i is units [item_start[i], item_start[i+1]) of one tile,
+    and writes its own (8, B) partials.  Returns numpy int32 arrays
+    block_unit (N+1), block_item (N: a block's first item), tile_item
+    (ceil(T/8)+1: the items of tile t are [tile_item[t], tile_item[t+1]))
+    and item_start (n_items+1), with N = min(n_blocks, U)."""
+    n_cb = -(-C // UNIT_CELLS)
+    n_tt = -(-T // UNIT_ROWS)
+    U = n_tt * n_cb
+    N = max(1, min(n_blocks, U))
+    block_unit = np.arange(N + 1, dtype=np.int64) * U // N
+    item_start = np.union1d(block_unit, np.arange(n_tt + 1, dtype=np.int64) * n_cb)
+    return {
+        "block_unit": block_unit.astype(np.int32),
+        "block_item": np.searchsorted(item_start, block_unit[:-1]).astype(np.int32),
+        "tile_item": np.searchsorted(item_start, np.arange(n_tt + 1) * n_cb).astype(np.int32),
+        "item_start": item_start.astype(np.int32),
+    }
+
+
 @functools.cache
 def _library():
     """The built kernel library, its C signatures declared."""
     from atlite_tpu_torch.ops import _build
 
     lib = _build.library("megakernel")
-    lib.wind_pv_bus_splits.restype = ctypes.c_int
-    lib.wind_pv_bus_splits.argtypes = [ctypes.c_int] * 3
+    lib.wind_pv_bus_occupancy.restype = ctypes.c_int
+    lib.wind_pv_bus_occupancy.argtypes = ([ctypes.c_int] * 2
+                                          + [ctypes.POINTER(ctypes.c_int)] * 3)
     lib.wind_pv_bus_launch.restype = ctypes.c_int
     lib.wind_pv_bus_launch.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6)
+        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] * 5)
     lib.wind_pv_bus_error_string.restype = ctypes.c_char_p
     lib.wind_pv_bus_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        msg = _library().wind_pv_bus_error_string(rc).decode()
+        raise RuntimeError(f"wind_pv_bus_megakernel {what} failed: CUDA error {rc} ({msg})")
+
+
+def occupancy(device_index, B):
+    """(resident blocks an SM, shared-memory bytes a block, buses a pass)
+    of the kernel that takes B buses on card ``device_index``."""
+    per_sm, smem, bus_tile = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(_library().wind_pv_bus_occupancy(device_index, B, ctypes.byref(per_sm),
+                                               ctypes.byref(smem), ctypes.byref(bus_tile)),
+              "occupancy query")
+    return per_sm.value, smem.value, bus_tile.value
+
+
+@functools.cache
+def _grid(device_index, T, C, B):
+    """(block count, the work split on the card, n_items) of one shape: a
+    whole number of resident blocks on every SM."""
+    per_sm, _, _ = occupancy(device_index, B)
+    if per_sm < 1:
+        raise RuntimeError("wind_pv_bus_megakernel: no block fits an SM")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    split = work_split(T, C, sms * per_sm)
+    device = torch.device("cuda", device_index)
+    on_card = {k: torch.as_tensor(split[k], device=device)
+               for k in ("block_unit", "block_item", "tile_item")}
+    return len(split["block_unit"]) - 1, on_card, len(split["item_start"]) - 1
 
 
 def wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height=80.0):
@@ -123,13 +205,16 @@ def wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height=80.0)
             aggregate.dense_spmm(cf_p.reshape(T, -1), matrix))
 
 
-def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=80.0):
+def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=80.0,
+                           table=None):
     """Fused wind + PV + aggregation.
 
     fields: dict of (T, C) float32 tensors (FIELD_ORDER keys, wind at
     100 m); lat_cell: (C,) latitude of each flattened cell [deg]; matrix:
     (B, C) aggregation weights; V, POWn: power-curve knots (2 to
-    MAX_KNOTS) and normalised power; panel: Huld parameters.  Returns
+    MAX_KNOTS) and normalised power; panel: Huld parameters; table:
+    ``knot_table(V, POWn)``, from a caller that keeps it across calls
+    (built here when None; the plain version does not read it).  Returns
     (wind_bus, pv_bus), each (T, B).  CUDA tensors go through the kernel
     (``launches`` counts the launches), CPU tensors through the plain
     version.
@@ -137,15 +222,19 @@ def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=
     T, C, B, device = _check(fields, lat_cell, matrix, V, POWn)
     if device.type == "cpu":
         return wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height)
+    if table is None:
+        table = knot_table(V, POWn)
+    if not (table.device == device and table.dtype == torch.float32 and table.is_contiguous()
+            and table.shape == (1 << (V.shape[0] - 1).bit_length(), 4)):
+        raise ValueError("table must be knot_table(V, POWn) on the fields' device")
 
     lib = _library()
     prm = _panel(panel)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = lib.wind_pv_bus_splits(T, C, sms)
-
-    _, _, _, slope = wind.curve_segments(V, POWn)
-    slope = slope.contiguous()
-    part = torch.empty((2, splits, T, B), dtype=torch.float32, device=device)
+    # the kernel multiplies by the reciprocal, rounded once here
+    prm["r_irradiance"] = float(np.float32(1.0) / np.float32(prm["r_irradiance"]))
+    n_blocks, split, n_items = _grid(device.index, T, C, B)
+    panel_cells = torch.empty((C, 4), dtype=torch.float32, device=device)
+    part = torch.empty((2, n_items, UNIT_ROWS, B), dtype=torch.float32, device=device)
     out = torch.empty((2, T, B), dtype=torch.float32, device=device)
     field_ptrs = (ctypes.c_void_p * len(FIELD_ORDER))(
         *[fields[k].data_ptr() for k in FIELD_ORDER])
@@ -153,13 +242,11 @@ def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=
     stream = torch.cuda.current_stream(device).cuda_stream
 
     rc = lib.wind_pv_bus_launch(
-        device.index, field_ptrs, lat_cell.data_ptr(), matrix.data_ptr(),
-        V.data_ptr(), POWn.data_ptr(), slope.data_ptr(), V.shape[0], T, C, B,
-        splits, params, part[0].data_ptr(),
-        part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), stream)
-    if rc != 0:
-        msg = lib.wind_pv_bus_error_string(rc).decode()
-        raise RuntimeError(f"wind_pv_bus_megakernel launch failed: CUDA error {rc} ({msg})")
+        device.index, field_ptrs, lat_cell.data_ptr(), matrix.data_ptr(), table.data_ptr(),
+        table.shape[0], V.shape[0], T, C, B, split["block_unit"].data_ptr(),
+        split["block_item"].data_ptr(), split["tile_item"].data_ptr(), n_blocks, n_items,
+        params, panel_cells.data_ptr(), part.data_ptr(), out.data_ptr(), stream)
+    _raise_on(rc, "launch")
     wind_pv_bus_megakernel.launches += 1
     return out[0], out[1]
 

@@ -11,15 +11,22 @@ Phases, in order; any failure exits non-zero:
   4. main path: ``entry()``'s step on the card, at the example shape and
      the bench shape; the fused kernel's launch count must rise, and a
      second call must repeat the series bit for bit;
-  5. plain version on the card (TF32 off), same tensors: max abs diff
-     within 1e-5 * max|plain| per output, NaN masks identical;
+  5. plain version on the card (TF32 off), same tensors, and again with
+     the roughness varying by hour in every cell: max abs diff within
+     1e-5 * max|plain| per output, NaN masks identical;
   6. NaN cells in ``wnd100m``: the NaN masks of kernel and plain version
      equal "the bus row touches a NaN cell";
   7. ragged shapes (no dimension a tile multiple, and B over one bus
      tile) against the plain version on the card and on the CPU;
   8. timing with CUDA events: the fused step, its cell-hours/s and byte
-     bound, the plain version, and the two torch.matmul aggregations
-     alone; then the step's device time by kernel from torch.profiler;
+     bound, in turns with the same work building the knot table at every
+     call and with the roughness varying by hour; the host's enqueue time
+     a step; the plain version, and the two torch.matmul aggregations
+     alone; then the step's device time by kernel from torch.profiler,
+     and the fused kernel's own time, GB/s and share of its byte bound;
+     the kernel's registers, spills, shared memory and blocks an SM; the
+     step at B=256 (same fields) against the plain version and beside
+     B=20;
   9. continental inputs: a synthetic Cutout on the 241 x 481 grid of
      bench_continental.py over T=1440 h (two 720 h chunks; the full year
      is cut for time), prepared with wind, influx and temperature, and a
@@ -71,12 +78,14 @@ from atlite_tpu_torch.ops.bsr_spmm import (
 )
 from atlite_tpu_torch.ops.megakernel import (
     FIELD_ORDER,
+    occupancy,
     wind_pv_bus_megakernel,
     wind_pv_bus_plain,
 )
 from atlite_tpu_torch.resource import get_windturbineconfig
 
 BENCH_SHAPE = (2184, 96, 128, 20)
+WIDE_B = 256                # a second bus count at the bench's fields
 RAGGED_SHAPES = ((30, 7, 13, 3), (45, 9, 20, 37))
 REL_TOL = 1e-5              # max abs diff allowed, relative to max |plain|
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -96,6 +105,27 @@ PINNED_COPY = "Memcpy HtoD (Pinned -> Device)"  # the profiler's name for it
 
 def log(msg):
     print(msg, flush=True)
+
+
+# one entry function of ptxas -v: its name, then its spills and registers
+PTXAS_ENTRY = re.compile(r"Compiling entry function '_Z\w*?\d+([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?")
+PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_summary(text):
+    """{kernel name (with its template argument): (registers, spill store
+    bytes, spill load bytes)} from a build log of nvcc -Xptxas -v."""
+    out, name, spill = {}, None, (0, 0)
+    for line in text.splitlines():
+        if m := PTXAS_ENTRY.search(line):
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        elif (m := PTXAS_SPILL.search(line)) and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := PTXAS_REGS.search(line)) and name:
+            out[name] = (int(m.group(1)), *spill)
+            name, spill = None, (0, 0)
+    return out
 
 
 def compare(name, got, want):
@@ -504,10 +534,11 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(libs)}")
+    ptxas = {}
     for name, path in libs.items():
-        for line in open(f"{path}.log", encoding="utf-8").read().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        ptxas[name] = ptxas_summary(open(f"{path}.log", encoding="utf-8").read())
+        for fn, (regs, st, ld) in ptxas[name].items():
+            log(f"  {name}: {fn}: {regs} registers, {st} B spill stores, {ld} B spill loads")
 
     # ---- 3. inputs
     T, Y, X, B = BENCH_SHAPE
@@ -548,6 +579,16 @@ def main():
     err = max(compare("wind_bus", wind_bus, plain_w), compare("pv_bus", pv_bus, plain_p))
     (k_w, k_p), (r_w, r_p) = run_both(example_args)
     err = max(err, compare("example wind_bus", k_w, r_w), compare("example pv_bus", k_p, r_p))
+    # roughness that changes every hour in every cell (as ERA5's does over
+    # sea): each cell-hour takes its own hub factor
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rough_fields = dict(args[0])
+    rough_fields["roughness"] = args[0]["roughness"] * torch.exp(
+        0.5 * torch.randn((T, Y, X), generator=gen, device="cuda"))
+    rough_args = (rough_fields,) + tuple(args[1:])
+    (k_w, k_p), (r_w, r_p) = run_both(rough_args)
+    err = max(err, compare("wind_bus, roughness varying by hour", k_w, r_w),
+              compare("pv_bus, roughness varying by hour", k_p, r_p))
 
     # ---- 6. NaN cells
     log("NaN cells in wnd100m:")
@@ -581,7 +622,25 @@ def main():
 
     # ---- 8. timing
     K = V.shape[0]
-    step_ms = cuda_ms(lambda: step(*args), reps=20)
+    # in turns (A, B, C, C, B, A): the step; the same work with the knot
+    # table built at every call, as without the step's copy; the step on
+    # roughness varying by hour
+    turns = {"step": lambda: step(*args),
+             "table": lambda: wind_pv_bus_megakernel(*flat_args(args), PANEL, HUB_HEIGHT),
+             "rough": lambda: step(*rough_args)}
+    turn_ms = {k: [] for k in turns}
+    for k in list(turns) + list(turns)[::-1]:
+        turn_ms[k].append(cuda_ms(turns[k], reps=20))
+    step_ms, table_ms, rough_ms = (sum(v) / len(v) for v in turn_ms.values())
+    enqueue_ms = {}
+    for k in ("step", "table"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            turns[k]()
+        enqueue_ms[k] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+    del turns, rough_args, rough_fields
     plain_ms = cuda_ms(lambda: wind_pv_bus_plain(flat, lat_cell, matrix, V, POWn, PANEL,
                                                  HUB_HEIGHT), reps=3, warmup=1)
     cf = torch.rand((T, C), device="cuda")
@@ -595,17 +654,55 @@ def main():
     log(f"  fused step {step_ms:.4f} ms = {T * C / step_ms * 1e3:.4g} cell-hours/s; "
         f"bound {bound_ms:.4f} ms ({n_bytes / 1e9:.4f} GB at 3.35 TB/s: {bytes_ms:.4f} ms; "
         f"{n_flops / 1e9:.3f} GFLOP at 67 TFLOP/s: {flops_ms:.4f} ms)")
+    log(f"  in turns, 20 calls each, two rounds: the step {turn_ms['step']}, with the knot table "
+        f"built at every call {turn_ms['table']} (mean {table_ms:.4f} ms), with roughness "
+        f"varying by hour {turn_ms['rough']} (mean {rough_ms:.4f} ms)")
+    log(f"  the host enqueues a step in {enqueue_ms['step']:.4f} ms, with the table built at "
+        f"every call in {enqueue_ms['table']:.4f} ms (perf_counter over 20 calls, no sync)")
     log(f"  plain version {plain_ms:.3f} ms; two torch.matmul aggregations alone "
         f"{matmul_ms:.4f} ms")
     kernel_ms = device_breakdown(lambda: step(*args))
+    own_ms = None
     if kernel_ms:
         busy = sum(kernel_ms.values())
         log(f"  device time of the step by kernel (torch.profiler), {busy:.4f} ms busy, "
             f"idle share {max(0.0, 1 - busy / step_ms):.3f} of the event-timed step:")
         for name, ms in sorted(kernel_ms.items(), key=lambda kv: -kv[1]):
             log(f"    {ms:.4f} ms  {name[:90]}")
+        own_ms = sum(ms for name, ms in kernel_ms.items() if "wind_pv_bus_kernel" in name)
+        ours = sum(ms for name, ms in kernel_ms.items()
+                   if re.search(r"wind_pv_bus_kernel|panel_kernel|sum_items_kernel", name))
+        log(f"  the fused kernel alone: {own_ms:.4f} ms = {n_bytes / own_ms / 1e6:.1f} GB/s, "
+            f"{bytes_ms / own_ms:.1%} of its byte bound ({bytes_ms:.4f} ms); the step: "
+            f"{bytes_ms / step_ms:.1%}; PyTorch's small kernels of the step (the knot "
+            f"table, the latitudes): {busy - ours:.4f} ms")
     else:
         log("  device time by kernel: not measured (the profiler recorded none)")
+    for nb in (B, WIDE_B):
+        per_sm, smem, tile = occupancy(torch.cuda.current_device(), nb)
+        regs, st, ld = ptxas["megakernel"][f"wind_pv_bus_kernel<{tile // 4}>"]
+        log(f"  B={nb}: wind_pv_bus_kernel<{tile // 4}> ({tile} buses a pass): {regs} registers, "
+            f"{st} B spill stores, {ld} B spill loads, {smem} B of shared memory, "
+            f"{per_sm} blocks = {per_sm * 8} warps an SM")
+
+    # the step at B=256 over the same fields: the physics runs once a
+    # cell-hour, whatever the bus count
+    rng = np.random.default_rng(256)
+    wide = rng.random((WIDE_B, C), dtype=np.float32)
+    wide *= rng.random((WIDE_B, C)) < 0.05
+    wide = torch.as_tensor(wide, device="cuda")
+    log(f"B={WIDE_B} (the bench fields, a {WIDE_B}-bus matrix of density 0.05):")
+    k_w, k_p = wind_pv_bus_megakernel(flat, lat_cell, wide, V, POWn, PANEL, HUB_HEIGHT)
+    r_w, r_p = wind_pv_bus_plain(flat, lat_cell, wide, V, POWn, PANEL, HUB_HEIGHT)
+    err = max(err, compare(f"wind_bus B={WIDE_B}", k_w, r_w),
+              compare(f"pv_bus B={WIDE_B}", k_p, r_p))
+    wide_ms = cuda_ms(lambda: wind_pv_bus_megakernel(flat, lat_cell, wide, V, POWn, PANEL,
+                                                     HUB_HEIGHT), reps=10)
+    agg_ms = 4 * T * C * WIDE_B / FP32_FLOPS * 1e3
+    log(f"  fused step {wide_ms:.4f} ms at B={WIDE_B} against {step_ms:.4f} ms at B={B}; its "
+        f"aggregation alone is {4 * T * C * WIDE_B / 1e9:.2f} GFLOP = {agg_ms:.4f} ms of FP32 "
+        f"FMA at 67 TFLOP/s")
+    del wide, k_w, k_p, r_w, r_p
 
     cut, matrix = continental_inputs()
     cf = continental_path(cut, matrix, card)
@@ -623,7 +720,12 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": None,
+        "kernel_ms": own_ms,
+        "table_each_call_ms": table_ms,
+        "hourly_roughness_ms": rough_ms,
+        "enqueue_ms": enqueue_ms["step"],
         "matmul_only_ms": matmul_ms,
+        "b256_ms": wide_ms,
     }, bsr_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

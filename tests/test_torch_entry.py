@@ -8,6 +8,7 @@ latitude-optimal slope takes the float32 branch in both packages.
 """
 
 import ast
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -75,6 +76,31 @@ def test_x64_flips_the_50_degree_branch_of_the_reference():
         f64_wind, f64_pv = [np.asarray(a) for a in jax.jit(ge._step_fn())(*args_np)]
     np.testing.assert_allclose(f64_wind, f32_wind, rtol=1e-5, atol=2e-5)
     assert np.abs(f64_pv - f32_pv).max() > 1e-3
+
+
+def test_step_builds_the_knot_table_once_per_curve(monkeypatch):
+    """The step keeps the kernel's knot table of the curve it was last
+    given: the same tensors reuse it; a curve written in place, or other
+    tensors, build it again."""
+    module = importlib.import_module("atlite_tpu_torch.entry")
+    real, built = module.knot_table, []
+
+    def counted(V, POWn):
+        built.append(V)
+        return real(V, POWn)
+
+    monkeypatch.setattr(module, "knot_table", counted)
+    step = step_fn()
+    fields, eph, lon, lat, V, POWn, matrix = from_jax_inputs(*ge._example_inputs(T=4),
+                                                             device="cpu")
+    for _ in range(3):
+        step(fields, eph, lon, lat, V, POWn, matrix)
+    assert len(built) == 1
+    POWn[5] = 0.5
+    step(fields, eph, lon, lat, V, POWn, matrix)
+    assert len(built) == 2
+    step(fields, eph, lon, lat, V.clone(), POWn, matrix)
+    assert len(built) == 3 and built[-1] is not V
 
 
 def test_entry_without_card_raises(monkeypatch):

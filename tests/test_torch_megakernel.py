@@ -6,7 +6,10 @@ atol 2e-5, as tests/test_megakernel.py holds that kernel, and against
 ``__graft_entry__._step_fn`` (whose sparse NaN rule the port follows)
 with NaN cells, where the NaN masks must be equal.  JAX runs with x64 off,
 as on its chip.  The kernel itself runs only on a CUDA card; its test is
-tests/test_torch_megakernel_cuda.py.
+tests/test_torch_megakernel_cuda.py.  What the wrapper hands the kernel is
+held here: the power-curve table, read by a torch emulation of the
+kernel's upper-bound search, against both packages' power curves, and the
+persistent grid's work split.
 """
 
 import jax
@@ -16,13 +19,19 @@ import torch
 
 import __graft_entry__ as ge
 from atlite_tpu.ops.megakernel import wind_pv_bus_megakernel as pallas_megakernel
+from atlite_tpu.physics import wind as jax_wind
 from atlite_tpu_torch import build_inputs
 from atlite_tpu_torch.entry import PANEL
 from atlite_tpu_torch.ops.megakernel import (
     FIELD_ORDER,
     MAX_KNOTS,
+    UNIT_CELLS,
+    UNIT_ROWS,
+    knot_table,
     wind_pv_bus_megakernel,
+    work_split,
 )
+from atlite_tpu_torch.physics import wind
 
 torch.set_num_threads(1)
 
@@ -122,3 +131,111 @@ def test_wrapper_raises_on_shape_and_layout():
     with pytest.raises(ValueError, match="Huld"):
         wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn,
                                {**PANEL, "model": "bofinger"})
+
+
+def searched_curve(table, n_knots, x):
+    """torch emulation of the kernel's power curve: the branch-free
+    upper-bound search over the table's column 0, then the segment's value
+    or the clamped end value, in the kernel's order of operations."""
+    P = table.shape[0]
+    keys, power, slope = table[:, 0], table[:, 1], table[:, 2]
+    pos = torch.zeros(x.shape, dtype=torch.long)
+    step = P // 2
+    while step:
+        pos += torch.where(keys[pos + step - 1] <= x, step, 0)
+        step //= 2
+    pos += (keys[pos] <= x).long()
+    k = pos - 1
+    kk = k.clamp(0, n_knots - 2)
+    inside = 0.0 + (power[kk] + (x - keys[kk]) * slope[kk])
+    out = torch.where(k < 0, (0.0 + 0.0) + power[0],
+                      torch.where(k >= n_knots - 1, (0.0 + 0.0) + power[n_knots - 1], inside))
+    return torch.where(torch.isnan(x), torch.nan, out)
+
+
+def curve_cases():
+    """(V, POWn) power curves: the bench curve (duplicated cut-out knot),
+    a curve with duplicated cut-in and cut-out knots, K = 2 and K = 256."""
+    _, _, _, _, V, POWn, _ = build_inputs(2, 2, 2, 1)
+    jumps = (np.array([0.0, 3.0, 3.0, 7.5, 12.0, 25.0, 25.0, 30.0], dtype=np.float32),
+             np.array([0.0, 0.0, 0.05, 0.4, 1.0, 1.0, 0.0, 0.0], dtype=np.float32))
+    two = (np.array([2.0, 20.0], dtype=np.float32), np.array([0.0, 1.0], dtype=np.float32))
+    rng = np.random.default_rng(4)
+    v256 = np.sort(rng.uniform(0.0, 40.0, MAX_KNOTS)).astype(np.float32)
+    v256[100] = v256[99]  # one jump inside
+    wide = (v256, rng.random(MAX_KNOTS, dtype=np.float32))
+    return {"bench": (V, POWn), "jumps": jumps, "K=2": two, "K=256": wide}
+
+
+@pytest.mark.parametrize("case", ["bench", "jumps", "K=2", "K=256"])
+def test_knot_table_search_matches_power_curves(case):
+    V, POWn = curve_cases()[case]
+    K = len(V)
+    rng = np.random.default_rng(K)
+    x = np.concatenate([
+        V,                                           # exactly on every knot
+        np.nextafter(V, np.float32(-np.inf)), np.nextafter(V, np.float32(np.inf)),
+        [V[0] - 1.0, V[0] - 1e-3, V[-1], V[-1] + 1e-3, V[-1] + 50.0],
+        [np.nan, np.inf, -np.inf],
+        rng.uniform(V[0] - 2.0, V[-1] + 2.0, 2000),
+    ]).astype(np.float32)
+    Vt, Pt, xt = (torch.as_tensor(a) for a in (V, POWn, x))
+    table = knot_table(Vt, Pt)
+    P = table.shape[0]
+    assert P >= K and P & (P - 1) == 0 and P < 2 * K
+    assert torch.isinf(table[K:, 0]).all() and (table[K - 1:, 2] == 0).all()
+    got = searched_curve(table, K, xt)
+    # the port's plain power curve: the same bits, NaN included
+    want = wind.power_curve(xt, Vt, Pt, 1.0)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
+    # a query exactly on a duplicated knot takes the post-jump segment
+    dup = np.flatnonzero(np.diff(V) == 0)
+    for d in dup:
+        on = torch.tensor([V[d]])
+        assert float(searched_curve(table, K, on)) == float(POWn[d + 1])
+    # and the JAX package's power curve within float32 rounding
+    with jax.enable_x64(False):
+        ref = np.asarray(jax_wind.power_curve(x, V, POWn, 1.0))
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(ref))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("T, C, n_blocks", [
+    (2184, 96 * 128, 132 * 3), (2184, 96 * 128, 132 * 2), (30, 91, 132 * 3),
+    (45, 180, 7), (1, 1, 264), (17, 130, 3), (100, 480, 40)])
+def test_work_split_covers_every_unit_once(T, C, n_blocks):
+    s = work_split(T, C, n_blocks)
+    n_tt, n_cb = -(-T // UNIT_ROWS), -(-C // UNIT_CELLS)
+    U = n_tt * n_cb
+    bu, bi, ti, st = s["block_unit"], s["block_item"], s["tile_item"], s["item_start"]
+    N = len(bu) - 1
+    assert N == min(n_blocks, U)
+    assert bu[0] == 0 and bu[-1] == U
+    runs = np.diff(bu)
+    assert runs.min() >= 1 and runs.max() - runs.min() <= 1  # balanced to a unit
+    # items tile the units in order, each inside one time tile
+    assert st[0] == 0 and st[-1] == U and (np.diff(st) > 0).all()
+    covered = np.zeros((n_tt, n_cb), dtype=int)
+    for i in range(len(st) - 1):
+        tiles = np.arange(st[i], st[i + 1]) // n_cb
+        assert (tiles == tiles[0]).all()
+        covered.reshape(-1)[st[i]:st[i + 1]] += 1
+    assert (covered == 1).all()
+    # a block's items: its first is block_item[k], the next ones start at
+    # each time tile's first chunk, and they end where its run ends
+    for k in range(N):
+        i = bi[k]
+        assert st[i] == bu[k]
+        for u in range(bu[k] + 1, bu[k + 1]):
+            if u % n_cb == 0:
+                i += 1
+                assert st[i] == u
+        assert st[i + 1] == bu[k + 1]
+    # the partial sums of tile t are items tile_item[t] .. tile_item[t+1]-1
+    assert len(ti) == n_tt + 1 and ti[0] == 0 and ti[-1] == len(st) - 1
+    for t in range(n_tt):
+        assert st[ti[t]] == t * n_cb and st[ti[t + 1]] == (t + 1) * n_cb
+    # partials: (2, n_items, 8, B), at most one item a block and a tile
+    assert len(st) - 1 <= N + n_tt

@@ -9,7 +9,11 @@ JAX):
 
 Tolerance: max abs diff within 1e-5 * max|plain| per output (float32 sums
 over the cells in another order than the plain matmul), NaN masks
-identical.
+identical.  Bus counts reach both of the kernel's bus tiles (20 buses a
+pass up to B = 20, 32 above) and cross them, the power curve reaches the
+256-knot limit, a 100 m hub makes the hub speed equal the stored 100 m
+wind, so that queries fall exactly on the curve's duplicated knots, and
+the roughness changes from hour to hour.
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ from atlite_tpu_torch import build_inputs
 from atlite_tpu_torch.entry import PANEL
 from atlite_tpu_torch.ops.megakernel import (
     FIELD_ORDER,
+    knot_table,
     wind_pv_bus_megakernel,
     wind_pv_bus_plain,
 )
@@ -41,6 +46,17 @@ def card_inputs(T, Y, X, B, device, nan_cells=4):
     return flat, put(np.repeat(lat, X)), put(matrix), put(V), put(POWn)
 
 
+def assert_close(got, want, shape):
+    """Kernel against plain: shape, identical NaN masks, max abs diff within
+    1e-5 * max|plain|."""
+    for g, w in zip(got, want):
+        assert g.shape == shape and g.device.type == "cuda"
+        g, w = g.cpu().double(), w.cpu().double()
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        assert float((g[ok] - w[ok]).abs().max()) <= 1e-5 * float(w[ok].abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(48, 16, 24, 5), (30, 7, 13, 3), (45, 9, 20, 37),
                                    (100, 12, 40, 70)])
@@ -50,13 +66,57 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
     got = wind_pv_bus_megakernel(*args, PANEL)
     torch.cuda.synchronize()
     assert wind_pv_bus_megakernel.launches == before + 1
+    assert_close(got, wind_pv_bus_plain(*args, PANEL), (shape[0], shape[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 20, 24, 33, 300, 2048])
+def test_kernel_across_bus_tiles(cuda_device, B):
+    """Every cell-hour's physics is computed once and multiplied by each
+    bus tile; NaN cells poison only the buses they touch; a second call
+    repeats the bits."""
+    args = card_inputs(40, 8, 24, B, device=cuda_device, nan_cells=40)
+    got = wind_pv_bus_megakernel(*args, PANEL)
     want = wind_pv_bus_plain(*args, PANEL)
-    for g, w in zip(got, want):
-        assert g.shape == (shape[0], shape[3]) and g.device.type == "cuda"
-        g, w = g.cpu().double(), w.cpu().double()
-        assert torch.equal(torch.isnan(g), torch.isnan(w))
-        ok = ~torch.isnan(w)
-        assert float((g[ok] - w[ok]).abs().max()) <= 1e-5 * float(w[ok].abs().max())
+    assert_close(got, want, (40, B))
+    assert torch.isnan(got[0]).any() and not torch.isnan(got[0]).all()
+    again = wind_pv_bus_megakernel(*args, PANEL)
+    bits = lambda x: x.view(torch.int32)  # NaN included
+    assert all(torch.equal(bits(a), bits(g)) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_kernel_with_256_knots_and_a_100m_hub(cuda_device):
+    """The widest knot table, and hub speeds exactly on duplicated knots:
+    the wind field is set to the knots themselves, and a 100 m hub takes
+    the stored 100 m wind unchanged."""
+    flat, lat_cell, matrix, _, _ = card_inputs(48, 6, 20, 9, device=cuda_device, nan_cells=0)
+    rng = np.random.default_rng(2)
+    V = np.sort(rng.uniform(0.0, 30.0, 256)).astype(np.float32)
+    V[[40, 200]] = V[[39, 199]]  # two jumps
+    POWn = rng.random(256, dtype=np.float32)
+    T, C = flat["wnd100m"].shape
+    wnd = rng.choice(np.concatenate([V, V[[39, 199]].repeat(50)]), size=(T, C))
+    flat["wnd100m"] = torch.as_tensor(wnd.astype(np.float32), device=cuda_device)
+    V, POWn = (torch.as_tensor(a, device=cuda_device) for a in (V, POWn))
+    for hub in (100.0, 80.0):
+        got = wind_pv_bus_megakernel(flat, lat_cell, matrix, V, POWn, PANEL, hub_height=hub)
+        want = wind_pv_bus_plain(flat, lat_cell, matrix, V, POWn, PANEL, hub_height=hub)
+        assert_close(got, want, (T, 9))
+
+
+@pytest.mark.cuda
+def test_kernel_with_roughness_varying_by_hour(cuda_device):
+    """Every cell-hour has its own roughness, so the two rows a thread
+    computes (4 h apart) take different hub factors; ragged T and C."""
+    T, Y, X, B = 45, 9, 20, 24
+    flat, lat_cell, matrix, V, POWn = card_inputs(T, Y, X, B, device=cuda_device)
+    rng = np.random.default_rng(5)
+    z0 = flat["roughness"].cpu().numpy() * np.exp(0.5 * rng.standard_normal((T, Y * X)))
+    assert (z0[4:] != z0[:-4]).all()
+    flat["roughness"] = torch.as_tensor(z0.astype(np.float32), device=cuda_device)
+    got = wind_pv_bus_megakernel(flat, lat_cell, matrix, V, POWn, PANEL)
+    assert_close(got, wind_pv_bus_plain(flat, lat_cell, matrix, V, POWn, PANEL), (T, B))
 
 
 @pytest.mark.cuda
@@ -65,3 +125,6 @@ def test_kernel_raises_instead_of_falling_back(cuda_device):
     flat, lat_cell, matrix, V, POWn = card_inputs(10, 3, 5, 2, device=cuda_device)
     with pytest.raises(ValueError, match="not on"):
         wind_pv_bus_megakernel(flat, lat_cell, matrix.cpu(), V, POWn, PANEL)
+    with pytest.raises(ValueError, match="table"):
+        wind_pv_bus_megakernel(flat, lat_cell, matrix, V, POWn, PANEL,
+                               table=knot_table(V, POWn).cpu())
