@@ -11,8 +11,9 @@ Products, in PyTorch with TF32 off:
 - ``bsr_spmm`` (whole-tile gather, ``torch.bmm``, ``index_add_`` over the
   row blocks) and ``bsr_spmm_scan`` (one block at a time): plain BSR;
 - ``bsr_spmm_kernel``: the hand-written CUDA kernel ``csrc/bsr_spmm.cu``
-  (port of ``bsr_spmm_pallas``) for tensors on a card, ``bsr_spmm`` for
-  tensors on the CPU;
+  (port of ``bsr_spmm_pallas``: one product per nonzero entry, from the
+  row-interleaved entries ``compact_bsr`` that ``stage_bsr`` adds) for
+  tensors on a card, ``bsr_spmm`` for tensors on the CPU;
 - ``stage_banded``/``banded_spmm``: the banded product, the production
   large-matrix path of ``aggregate.spmm_closure``.
 
@@ -66,27 +67,92 @@ def to_bsr(matrix: sp.spmatrix, block_b=32, block_c=512):
     }
 
 
-def _row_ptr(bsr):
-    """CSR pointer over the blocks: row block r owns blocks
-    [ptr[r], ptr[r + 1]).  Raises unless the blocks are sorted by row."""
+SLAB = 512  # columns the kernel stages at once (csrc/bsr_spmm.cu kMaxWidth)
+SUPER_ROWS = 64  # rows of the row blocks the kernel takes together
+
+
+def compact_bsr(bsr):
+    """The blocks of a to_bsr dict as the kernel reads them.
+
+    G = max(1, SUPER_ROWS // bb) consecutive row blocks form a super row of
+    R = G * bb rows; a unit is one column block of a super row, and its
+    mask has bit h set where row block G * s + h stores a block there.  A
+    unit's columns are cut into slabs of ``width = min(bc, SLAB)``, and the
+    nonzero entries of (unit u, slab j), e = u * slabs + j, are
+    row-interleaved (ELL) in slices of 32 rows, each as long as its longest
+    row: with S = ceil(R / 32) and ``p = ell_ptr[e * S + r // 32]``, entry i
+    of row r is ``ell[p + i * 32 + r % 32]``, an int32 pair of (column
+    inside the slab, float32 bits of the weight), in column order, (0, 0)
+    where the row has fewer entries.  Zero means ``blocks != 0`` in
+    float32: stored zeros and -0.0 are zeros, a NaN weight is an entry, so
+    no entry has the bits of 0.0.
+
+    Super rows pay where consecutive row blocks share column blocks (the
+    two halves of a region row in bus order iy * nx + ix): a unit's field
+    tile is then staged once for both.  Where they share none, every unit
+    holds one row block and a thread block's other rows idle.
+
+    Returns a dict of numpy arrays ``ell``, ``ell_ptr``, ``unit_ptr``
+    (nsr + 1,: super row s owns units [unit_ptr[s], unit_ptr[s + 1])),
+    ``unit_col`` (the unit's column block), ``unit_mask`` (uint64) and the
+    ints ``rows`` (R) and ``width``.
+    """
+    blocks = np.asarray(bsr["blocks"], dtype=np.float32)
     row_blk = np.asarray(bsr["row_blk"], dtype=np.int64)
-    nb = bsr["B_pad"] // bsr["block_b"]
-    if row_blk.size and (np.any(np.diff(row_blk) < 0) or row_blk[0] < 0
-                         or row_blk[-1] >= nb):
-        raise ValueError("row_blk must be sorted and within the row blocks (see to_bsr)")
-    return np.searchsorted(row_blk, np.arange(nb + 1)).astype(np.int32)
+    col_blk = np.asarray(bsr["col_blk"], dtype=np.int64)
+    K, bb, bc = blocks.shape
+    nb, nc = bsr["B_pad"] // bb, bsr["C_pad"] // bc
+    if row_blk.size and (np.any(np.diff(row_blk) < 0) or row_blk[0] < 0 or row_blk[-1] >= nb
+                         or col_blk.min() < 0 or col_blk.max() >= nc):
+        raise ValueError("row_blk must be sorted and the blocks within the matrix (see to_bsr)")
+    G = max(1, SUPER_ROWS // bb)
+    R = G * bb
+    nsr = -(-nb // G)
+    # units: the column blocks of each super row, sorted
+    units, unit_of = np.unique((row_blk // G) * nc + col_blk, return_inverse=True)
+    unit_of = unit_of.reshape(-1)
+    U = len(units)
+    mask = np.zeros(U, dtype=np.uint64)
+    np.bitwise_or.at(mask, unit_of, np.left_shift(np.uint64(1), (row_blk % G).astype(np.uint64)))
+    width = min(bc, SLAB)
+    slabs = -(-bc // width)
+    # entries, by (unit, slab), row of the super row, then column
+    k, r, c = np.nonzero(blocks)
+    vals = blocks[k, r, c]
+    step = unit_of[k] * slabs + c // width
+    rr = (row_blk[k] % G) * bb + r
+    order = np.lexsort((c, rr, step))
+    step, rr, c, vals = step[order], rr[order], c[order], vals[order]
+    S = -(-R // 32)
+    group = step * S * 32 + rr  # (step, slice, row within the slice)
+    rank = np.arange(len(group)) - np.searchsorted(group, group)  # i within its row
+    per_row = np.bincount(group, minlength=U * slabs * S * 32).reshape(-1, 32)
+    ptr = np.zeros(U * slabs * S + 1, dtype=np.int64)
+    np.cumsum(per_row.max(axis=1) * 32, out=ptr[1:])
+    if ptr[-1] > np.iinfo(np.int32).max:
+        raise ValueError(f"{ptr[-1]} entry slots: the kernel counts them in int32")
+    ell = np.zeros((ptr[-1], 2), dtype=np.int32)
+    pos = ptr[group // 32] + rank * 32 + rr % 32
+    ell[pos, 0] = c - (step % slabs) * width
+    ell[pos, 1] = vals.view(np.int32)
+    return {"ell": ell, "ell_ptr": ptr.astype(np.int32),
+            "unit_ptr": np.searchsorted(units // nc, np.arange(nsr + 1)).astype(np.int32),
+            "unit_col": (units % nc).astype(np.int32), "unit_mask": mask,
+            "rows": R, "width": width}
 
 
 def stage_bsr(bsr, device):
     """A to_bsr dict with its arrays as tensors on ``device`` (blocks in
-    float32) and the kernel's row pointer; the products then skip the
-    upload."""
+    float32) and the form the kernel reads (``compact_bsr``, under the key
+    ``compact``); the products then skip the upload."""
     device = torch.device(device)
+    compact = {k: torch.as_tensor(v.view(np.int64) if k == "unit_mask" else v, device=device)
+               if isinstance(v, np.ndarray) else v for k, v in compact_bsr(bsr).items()}
     return {**bsr,
             "row_blk": torch.as_tensor(bsr["row_blk"], device=device),
             "col_blk": torch.as_tensor(bsr["col_blk"], device=device),
             "blocks": torch.as_tensor(bsr["blocks"], dtype=torch.float32, device=device),
-            "row_ptr": torch.as_tensor(_row_ptr(bsr), device=device)}
+            "compact": compact}
 
 
 def _bsr_operands(bsr, flat_tc):
@@ -135,11 +201,29 @@ def _library():
 
     lib = _build.library("bsr_spmm")
     lib.bsr_spmm_launch.restype = ctypes.c_int
-    lib.bsr_spmm_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.bsr_spmm_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.bsr_spmm_error_string.restype = ctypes.c_char_p
     lib.bsr_spmm_error_string.argtypes = [ctypes.c_int]
+    lib.bsr_spmm_occupancy.restype = ctypes.c_int
+    lib.bsr_spmm_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                       ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        msg = _library().bsr_spmm_error_string(rc).decode()
+        raise RuntimeError(f"bsr_spmm_kernel {what} failed: CUDA error {rc} ({msg})")
+
+
+def occupancy(device_index, width):
+    """(resident blocks an SM, shared-memory bytes a block) of the kernel
+    at slab width ``width`` on card ``device_index``."""
+    per_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(_library().bsr_spmm_occupancy(device_index, width, ctypes.byref(per_sm),
+                                            ctypes.byref(smem)), "occupancy query")
+    return per_sm.value, smem.value
 
 
 def bsr_spmm_kernel(bsr, flat_tc):
@@ -148,9 +232,10 @@ def bsr_spmm_kernel(bsr, flat_tc):
     ``bsr`` may come from ``stage_bsr``.  A float32 field on a CUDA card
     goes through ``csrc/bsr_spmm.cu`` (``launches`` counts the launches);
     a field on the CPU through the plain ``bsr_spmm``.  Both follow
-    ``bsr_spmm_pallas``: float32
-    multiply-adds over every stored entry (a NaN field entry times a
-    stored zero is NaN), zeros for buses that no block covers.
+    ``bsr_spmm_pallas``: the sum of the products at the stored entries,
+    where a non-finite field value times a stored zero is NaN (the kernel
+    multiplies only the nonzero entries and applies that rule exactly),
+    zeros for buses that no block covers.
     """
     if not isinstance(flat_tc, torch.Tensor) or flat_tc.ndim != 2:
         raise TypeError("flat_tc must be a (T, C) torch.Tensor")
@@ -167,23 +252,22 @@ def bsr_spmm_kernel(bsr, flat_tc):
         raise ValueError(f"empty field {(T, C)}")
     bb, bc, B = bsr["block_b"], bsr["block_c"], bsr["B"]
     dev = flat_tc.device
-    if "row_ptr" not in bsr:
+    if "compact" not in bsr:
         bsr = stage_bsr(bsr, dev)
-    row_ptr, blocks = bsr["row_ptr"], bsr["blocks"]
-    col_blk = bsr["col_blk"].to(torch.int32).contiguous()
-    if any(t.device != dev for t in (row_ptr, col_blk, blocks)):
+    cp = bsr["compact"]
+    arrays = [cp[k] for k in ("ell", "ell_ptr", "unit_ptr", "unit_col", "unit_mask")]
+    if any(t.device != dev for t in arrays):
         raise ValueError(f"the staged matrix is not on {dev}, where the field is")
-    if blocks.dtype != torch.float32 or not blocks.is_contiguous():
-        raise TypeError("the kernel takes contiguous float32 blocks (see stage_bsr)")
+    if not all(t.is_contiguous() for t in arrays) or [t.dtype for t in arrays] != [
+            torch.int32] * 4 + [torch.int64]:
+        raise TypeError("the kernel takes the compact form of stage_bsr")
     out = torch.empty((T, B), dtype=torch.float32, device=dev)
     lib = _library()
     rc = lib.bsr_spmm_launch(
-        dev.index, flat_tc.data_ptr(), blocks.data_ptr(), col_blk.data_ptr(), row_ptr.data_ptr(),
-        out.data_ptr(), T, C, B, bb, bc, row_ptr.numel() - 1,
+        dev.index, flat_tc.data_ptr(), *(t.data_ptr() for t in arrays), out.data_ptr(),
+        T, C, B, bb, bc, cp["rows"], cp["width"], cp["unit_ptr"].numel() - 1,
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.bsr_spmm_error_string(rc).decode()
-        raise RuntimeError(f"bsr_spmm_kernel launch failed: CUDA error {rc} ({msg})")
+    _raise_on(rc, "launch")
     bsr_spmm_kernel.launches += 1
     return out
 

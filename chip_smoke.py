@@ -45,11 +45,19 @@ Phases, in order; any failure exits non-zero:
      failed;
  11. the BSR entry: ``bsr_spmm_kernel`` on the wind capacity factors of
      the first 720 h against the plain ``bsr_spmm`` (same bits on a
-     second call), NaN cells (identical NaN masks), an empty row block
-     (exact zeros), two ragged shapes on the card and the CPU; timing
-     against its bound, the plain version, a dense torch.matmul and
-     torch.sparse.mm on a sparse BSR tensor; its bound counts a product
-     per nonzero entry of the blocks.
+     second call), after ``stage_bsr`` builds the kernel's compact form on
+     the host and uploads it (timed as set-up); NaN cells, a NaN at a
+     stored zero of a row with nonzeros, +Inf and -Inf cells (identical
+     NaN masks and +-Inf entries), an empty row block (exact zeros), two
+     ragged shapes on the card and the CPU, the matrix with its row
+     blocks paired so that super rows merge nothing; timing against its
+     bound (a product per nonzero entry of the blocks, or the bytes of
+     the field, the compact form and the output), the paired-apart
+     matrix, the plain version, a dense torch.matmul, torch.sparse.mm on
+     a sparse BSR tensor and on the CSR matrix (cuSPARSE: from the (T, C)
+     field, its transpose counted, and from a field transposed
+     beforehand); the kernel's registers, spills, shared memory and
+     blocks an SM.
 Then one JSON line of kernels and, last, the result line.
 """
 
@@ -69,6 +77,7 @@ from atlite_tpu_torch import Cutout, aggregate, build_inputs, entry, from_jax_in
 from atlite_tpu_torch.convert import convert_wind
 from atlite_tpu_torch.entry import HUB_HEIGHT, PANEL
 from atlite_tpu_torch.ops import _build
+from atlite_tpu_torch.ops import bsr_spmm as bsr_ops
 from atlite_tpu_torch.ops.bsr_spmm import (
     banded_width,
     bsr_spmm,
@@ -129,12 +138,16 @@ def ptxas_summary(text):
 
 
 def compare(name, got, want):
-    """Max abs diff of two (T, B) series; raises unless the NaN masks are
-    identical and the diff is within REL_TOL * max|want|."""
+    """Max abs diff of two (T, B) series; raises unless the NaN masks and the
+    +-Inf entries are identical and the diff of the finite entries is within
+    REL_TOL * their max |want|."""
     got, want = got.double().cpu(), want.double().cpu()
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
         raise RuntimeError(f"{name}: NaN masks differ")
-    ok = ~torch.isnan(want)
+    inf = torch.isinf(want)
+    if not (torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf])):
+        raise RuntimeError(f"{name}: +-Inf entries differ")
+    ok = torch.isfinite(want)
     if not ok.any():
         return 0.0
     err = float((got[ok] - want[ok]).abs().max())
@@ -253,6 +266,19 @@ def region_matrix(cutout, ny, nx):
     C = bus.size
     return sp.csr_matrix((np.ones(C, dtype=np.float32), (bus, np.arange(C))),
                          shape=(ny * nx, C))
+
+
+def pair_apart(matrix, ny, nx):
+    """region_matrix's rows reordered so that the row blocks of half a
+    region row (nx / 2 buses each) come in pairs of region rows iy and
+    iy + ny / 2, which share no column block."""
+    b = np.arange(ny * nx)
+    iy, ix = b // nx, b % nx
+    half, x = ix // (nx // 2), ix % (nx // 2)
+    pos = half * ny + 2 * (iy % (ny // 2)) + iy // (ny // 2)
+    new = np.empty_like(b)
+    new[pos * (nx // 2) + x] = b
+    return matrix[new]
 
 
 def flat_args(args):
@@ -426,14 +452,22 @@ def continental_path(cut, matrix, card):
     return cf
 
 
-def bsr_phase(matrix, cf, card):
+def bsr_phase(matrix, cf, card, ptxas):
     """Phase 11: the BSR entry on the card; returns its kernels entry."""
     T, C = cf.shape
     B = matrix.shape[0]
     bsr = to_bsr(matrix)
+    t0 = time.perf_counter()
     staged = stage_bsr(bsr, cf.device)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    cp = staged["compact"]
     K, bb, bc = len(bsr["row_blk"]), bsr["block_b"], bsr["block_c"]
+    nnz = int(np.count_nonzero(bsr["blocks"]))
     log(f"BSR entry: T={T} C={C} B={B}, K={K} blocks of {bb} x {bc}:")
+    log(f"  set-up: stage_bsr {stage_s:.3f} s, the host's compact form and the upload "
+        f"({cp['unit_col'].numel()} units of {cp['rows']} rows, {cp['ell'].shape[0]} entry "
+        f"slots for {nnz} nonzeros)")
     wind_pv_bus_megakernel.launches = bsr_spmm_kernel.launches = 0
     got = bsr_spmm_kernel(staged, cf)
     torch.cuda.synchronize()
@@ -442,6 +476,8 @@ def bsr_phase(matrix, cf, card):
         f"{wind_pv_bus_megakernel.launches} of wind_pv_bus_megakernel")
     if launches < 1:
         raise RuntimeError("the BSR entry did not launch its kernel")
+    if tuple(got.shape) != (T, B) or not torch.isfinite(got).all():
+        raise RuntimeError(f"BSR entry: {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
     plain = bsr_spmm(staged, cf)
     err = compare("wind capacity factors, kernel vs plain", got, plain)
     if not torch.equal(bsr_spmm_kernel(staged, cf), got):
@@ -454,6 +490,33 @@ def bsr_phase(matrix, cf, card):
         float("nan")
     err = max(err, compare("NaN cells (dense-in-block rule)",
                            bsr_spmm_kernel(staged, nan_cf), bsr_spmm(staged, nan_cf)))
+    # a NaN at a stored zero of a row that has nonzeros elsewhere in the block
+    blk0 = np.asarray(bsr["blocks"][0])
+    r = int(np.flatnonzero((blk0 != 0).any(axis=1))[0])
+    c = int(np.flatnonzero(blk0[r] == 0)[0])
+    zero_cf = cf.clone()
+    zero_cf[T // 2, int(bsr["col_blk"][0]) * bc + c] = float("nan")
+    k_out = bsr_spmm_kernel(staged, zero_cf)
+    b = int(bsr["row_blk"][0]) * bb + r
+    if not bool(torch.isnan(k_out[T // 2, b])):
+        raise RuntimeError("a NaN at a stored zero did not reach its row")
+    err = max(err, compare("a NaN at a stored zero of a row with nonzeros", k_out,
+                           bsr_spmm(staged, zero_cf)))
+    # +Inf and -Inf cells; in this matrix each column holds one nonzero, so
+    # at each such cell one row of the block meets it at a nonzero (+-Inf
+    # when nothing else is non-finite in its blocks that hour) and the
+    # others at zeros (NaN)
+    inf_cf = cf.clone()
+    hours = torch.as_tensor(rng.choice(T, 8, replace=False))
+    inf_cf[hours[:4], torch.as_tensor(rng.integers(0, C, 4))] = float("inf")
+    inf_cf[hours[4:], torch.as_tensor(rng.integers(0, C, 4))] = -float("inf")
+    k_out = bsr_spmm_kernel(staged, inf_cf)
+    err = max(err, compare("+Inf and -Inf cells", k_out, bsr_spmm(staged, inf_cf)))
+    n_pos, n_neg = int((k_out == float("inf")).sum()), int((k_out == -float("inf")).sum())
+    if not (n_pos and n_neg):
+        raise RuntimeError(f"+-Inf cells gave {n_pos} +Inf and {n_neg} -Inf outputs")
+    log(f"  +-Inf cells: {n_pos} +Inf, {n_neg} -Inf and {int(torch.isnan(k_out).sum())} NaN "
+        "outputs, identical to the plain version")
     empty = matrix.tolil()
     empty[bb:2 * bb] = 0.0
     ebsr = stage_bsr(to_bsr(empty.tocsr()), cf.device)
@@ -469,8 +532,15 @@ def bsr_phase(matrix, cf, card):
         err = max(err, compare(f"ragged {(rT, rC, rB)} vs card plain", k_out,
                                bsr_spmm(rb, f.cuda())),
                   compare(f"ragged {(rT, rC, rB)} vs CPU plain", k_out, bsr_spmm(rb, f)))
+    # the same matrix with its row blocks paired so that no super row's two
+    # row blocks share a column block: super rows merge no unit
+    apart = stage_bsr(to_bsr(pair_apart(matrix, *CONT_REGIONS)), cf.device)
+    err = max(err, compare("row blocks paired apart", bsr_spmm_kernel(apart, cf),
+                           bsr_spmm(apart, cf)))
 
-    kernel_ms = cuda_ms(lambda: bsr_spmm_kernel(staged, cf), reps=10)
+    kernel_ms = cuda_ms(lambda: bsr_spmm_kernel(staged, cf), reps=20)
+    apart_ms = cuda_ms(lambda: bsr_spmm_kernel(apart, cf), reps=20)
+    del apart
     plain_ms = cuda_ms(lambda: bsr_spmm(staged, cf), reps=5, warmup=1)
     torch.backends.cuda.matmul.allow_tf32 = False
     dense = torch.as_tensor(matrix.toarray(), device=cf.device)
@@ -485,21 +555,43 @@ def bsr_phase(matrix, cf, card):
     except (RuntimeError, NotImplementedError) as exc:
         sparse_ms, sparse_note = None, f"does not run here ({str(exc).splitlines()[0][:120]})"
     del dense
+    # cuSPARSE through torch.sparse.mm on the matrix as CSR: from the
+    # kernel's own (T, C) field (its transpose counted), and from a field
+    # transposed beforehand
+    csr = torch.sparse_csr_tensor(
+        torch.as_tensor(matrix.indptr, dtype=torch.int64),
+        torch.as_tensor(matrix.indices, dtype=torch.int64),
+        torch.as_tensor(matrix.data, dtype=torch.float32), size=matrix.shape).to(cf.device)
+    csr_ms = cuda_ms(lambda: torch.sparse.mm(csr, cf.T).T, reps=20)
+    cf_t = cf.T.contiguous()
+    csr_t_ms = cuda_ms(lambda: torch.sparse.mm(csr, cf_t), reps=20)
+    csr_err = float((torch.sparse.mm(csr, cf.T).T - got).abs().max())
+    del cf_t
     # the work the function needs: a product per nonzero entry in the
-    # blocks (a stored zero only has to pass a NaN on, which a test per
-    # slab does), each input read once and the output written once
-    nnz = int(np.count_nonzero(bsr["blocks"]))
+    # blocks (a stored zero only has to pass a NaN on, which a test of the
+    # field does), each input the kernel takes read once (the field and the
+    # compact form) and the output written once
     n_flops = 2 * nnz * T
-    n_bytes = 4 * (C * T + K * bb * bc + T * B + K + B // bb + 1)
+    cp_bytes = sum(t.numel() * t.element_size() for t in cp.values() if torch.is_tensor(t))
+    n_bytes = 4 * (C * T + T * B) + cp_bytes
     flops_ms, bytes_ms = n_flops / FP32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(flops_ms, bytes_ms)
-    log(f"  timing on {card}: kernel {kernel_ms:.4f} ms; bound {bound_ms:.4f} ms "
-        f"({nnz} nonzeros in the blocks, {nnz / (K * bb * bc):.2%} of their entries: "
-        f"{n_flops / 1e9:.4f} GFLOP at 67 TFLOP/s: {flops_ms:.4f} ms; {n_bytes / 1e9:.4f} GB "
-        f"at 3.35 TB/s: {bytes_ms:.4f} ms; the kernel does {2 * K * bb * bc * T / 1e9:.3f} "
-        f"GFLOP, every stored entry); plain {plain_ms:.4f} ms; dense torch.matmul "
-        f"(TF32 off, {2 * B * C * T / 1e9:.1f} GFLOP) {library_ms:.4f} ms, max diff to the "
-        f"kernel {lib_err:.3e}; torch.sparse.mm on to_sparse_bsr({bb}, {bc}): {sparse_note}")
+    log(f"  timing on {card}: kernel {kernel_ms:.4f} ms = {bound_ms / kernel_ms:.1%} of its bound "
+        f"{bound_ms:.4f} ms ({nnz} nonzeros in the blocks, {nnz / (K * bb * bc):.2%} of their "
+        f"entries: {n_flops / 1e9:.4f} GFLOP at 67 TFLOP/s: {flops_ms:.4f} ms; "
+        f"{n_bytes / 1e9:.4f} GB at 3.35 TB/s: {bytes_ms:.4f} ms, of which the compact form "
+        f"{cp_bytes / 1e6:.3f} MB); plain {plain_ms:.4f} ms; "
+        f"dense torch.matmul (TF32 off, {2 * B * C * T / 1e9:.1f} GFLOP) {library_ms:.4f} ms, "
+        f"max diff to the kernel {lib_err:.3e}; torch.sparse.mm on to_sparse_bsr({bb}, {bc}): "
+        f"{sparse_note}")
+    log(f"  row blocks paired apart (no unit merged): kernel {apart_ms:.4f} ms")
+    log(f"  torch.sparse.mm on the CSR matrix (cuSPARSE): {csr_ms:.4f} ms from the (T, C) "
+        f"field, its transpose counted; {csr_t_ms:.4f} ms from a field transposed beforehand; "
+        f"max diff to the kernel {csr_err:.3e}")
+    per_sm, smem = bsr_ops.occupancy(cf.device.index, cp["width"])
+    regs, st, ld = ptxas["bsr_spmm"]["bsr_spmm_kernel"]
+    log(f"  bsr_spmm_kernel: {regs} registers, {st} B spill stores, {ld} B spill loads, "
+        f"{smem} B of shared memory, {per_sm} blocks = {per_sm * 8} warps an SM")
     return {
         "name": "bsr_spmm_kernel",
         "route": "cuda",
@@ -512,7 +604,10 @@ def bsr_phase(matrix, cf, card):
         "bound_ms": bound_ms,
         "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
         "library_ms": library_ms,
+        "csr_library_ms": csr_ms,
+        "csr_pretransposed_ms": csr_t_ms,
         "sparse_bsr_ms": sparse_ms,
+        "paired_apart_ms": apart_ms,
     }
 
 
@@ -706,7 +801,7 @@ def main():
 
     cut, matrix = continental_inputs()
     cf = continental_path(cut, matrix, card)
-    bsr_entry = bsr_phase(matrix, cf, card)
+    bsr_entry = bsr_phase(matrix, cf, card, ptxas)
 
     kernels = [{
         "name": "wind_pv_bus_megakernel",

@@ -120,13 +120,17 @@ def test_bsr_kernel_wrapper_counts_only_launches():
 
 
 def test_stage_bsr_row_pointer():
+    """The pointer over the units: super row s (G = 8 row blocks of 8 rows)
+    owns the units of its row blocks' column blocks, in column order."""
     m, flat = random_case()
     bsr = tbs.to_bsr(m, 8, 256)
     staged = tbs.stage_bsr(bsr, "cpu")
-    ptr = staged["row_ptr"].numpy()
-    assert ptr[0] == 0 and ptr[-1] == len(bsr["row_blk"]) and len(ptr) == bsr["B_pad"] // 8 + 1
-    for r in range(len(ptr) - 1):
-        assert (bsr["row_blk"][ptr[r]:ptr[r + 1]] == r).all()
+    ptr, cols = staged["compact"]["unit_ptr"].numpy(), staged["compact"]["unit_col"].numpy()
+    nsr = -(-(bsr["B_pad"] // 8) // 8)
+    assert ptr[0] == 0 and ptr[-1] == len(cols) and len(ptr) == nsr + 1
+    for s in range(nsr):
+        want = np.unique(bsr["col_blk"][bsr["row_blk"] // 8 == s])
+        np.testing.assert_array_equal(cols[ptr[s]:ptr[s + 1]], want)
     assert_same(tbs.bsr_spmm(staged, torch.as_tensor(flat)).numpy(),
                 tbs.bsr_spmm(bsr, torch.as_tensor(flat)).numpy())
     unsorted = dict(bsr, row_blk=bsr["row_blk"][::-1].copy())
@@ -207,3 +211,206 @@ def test_banded_empty_rows_are_zero():
     np.testing.assert_array_equal(out[:, 3:], 0.0)
     np.testing.assert_allclose(out[:, 0], 3.0)
     np.testing.assert_allclose(out[:, 2], 2.0)
+
+
+# ---------------------------------------------------------------------------
+# The form the CUDA kernel reads (compact_bsr) and its rule, emulated
+# ---------------------------------------------------------------------------
+def weights_case():
+    """Explicit stored zeros, -0.0 and NaN weights, and a row block whose
+    only stored values are zeros."""
+    rows = [0, 0, 1, 2, 3, 5, 6, 9, 9]
+    cols = [1, 7, 7, 3, 12, 0, 9, 2, 14]
+    vals = [0.0, 2.0, -0.0, np.nan, 1.5, 0.0, -3.0, -0.0, 0.0]
+    return sp.csr_matrix((np.array(vals, dtype=np.float32), (rows, cols)), shape=(11, 16))
+
+
+def unit_slots(cp, e):
+    """The ELL slots of (unit, slab) e as (slot, row of the super row, 2),
+    its 32-row slices side by side, padded to the longest."""
+    S = -(-cp["rows"] // 32)
+    ptr = cp["ell_ptr"][e * S:(e + 1) * S + 1]
+    n = max(int(b - a) // 32 for a, b in zip(ptr[:-1], ptr[1:]))
+    out = np.zeros((n, S * 32, 2), dtype=np.int32)
+    for q in range(S):
+        part = cp["ell"][ptr[q]:ptr[q + 1]].reshape(-1, 32, 2)
+        out[:len(part), q * 32:(q + 1) * 32] = part
+    return out
+
+
+def rebuild_blocks(bsr, cp):
+    """The (K, bb, bc) float32 blocks that a compact_bsr form stands for;
+    checks the units' masks and the ELL layout on the way."""
+    bb, bc = bsr["block_b"], bsr["block_c"]
+    R, width = cp["rows"], cp["width"]
+    G, slabs = R // bb, -(-bc // width)
+    index = {(int(r), int(c)): k for k, (r, c) in enumerate(zip(bsr["row_blk"], bsr["col_blk"]))}
+    blocks = np.zeros((len(index), bb, bc), dtype=np.float32)
+    for s in range(len(cp["unit_ptr"]) - 1):
+        for u in range(cp["unit_ptr"][s], cp["unit_ptr"][s + 1]):
+            cb = int(cp["unit_col"][u])
+            stored = [h for h in range(G) if (s * G + h, cb) in index]
+            assert int(cp["unit_mask"][u]) == sum(1 << h for h in stored)
+            for j in range(slabs):
+                slots = unit_slots(cp, u * slabs + j)
+                assert not slots[:, R:].any()  # the rows past R of the last slice
+                for rr in range(R):
+                    live = slots[:, rr, 1] != 0
+                    n = int(live.sum())
+                    assert live[:n].all() and not slots[n:, rr].any()  # padding (0, 0) last
+                    col = slots[:n, rr, 0]
+                    assert np.all(np.diff(col) > 0) and np.all((0 <= col) & (col < width))
+                    if n:
+                        k = index[(s * G + rr // bb, cb)]
+                        blocks[k, rr % bb, j * width + col] = slots[:n, rr, 1].view(np.float32)
+    return blocks
+
+
+COMPACT_CASES = {**{name: (lambda make=make: make()[0], bb, bc)
+                    for name, (make, bb, bc) in CASES.items()},
+                 "weights-4x8": (weights_case, 4, 8), "weights-2x4": (weights_case, 2, 4),
+                 "slabs-8x1300": (lambda: sp.random(40, 3001, density=0.05, random_state=2,
+                                                    format="csr"), 8, 1300)}
+
+
+@pytest.mark.parametrize("name", sorted(COMPACT_CASES))
+def test_compact_form_rebuilds_blocks(name):
+    make, bb, bc = COMPACT_CASES[name]
+    bsr = tbs.to_bsr(make(), bb, bc)
+    cp = tbs.compact_bsr(bsr)
+    blocks = np.asarray(bsr["blocks"], dtype=np.float32)
+    np.testing.assert_array_equal(rebuild_blocks(bsr, cp), blocks)  # -0.0 == 0.0, NaN == NaN
+    assert int((cp["ell"][:, 1] != 0).sum()) == int(np.count_nonzero(blocks))
+    staged = tbs.stage_bsr(bsr, "cpu")["compact"]
+    for k in ("ell", "ell_ptr", "unit_ptr", "unit_col"):
+        np.testing.assert_array_equal(staged[k].numpy(), cp[k])
+    np.testing.assert_array_equal(staged["unit_mask"].numpy().view(np.uint64), cp["unit_mask"])
+
+
+def test_compact_form_weights():
+    """Stored zeros and -0.0 are not entries, a NaN weight is; the row block
+    whose stored values are all zeros keeps its block (mask bit) and no
+    entry."""
+    bsr = tbs.to_bsr(weights_case(), 4, 8)
+    cp = tbs.compact_bsr(bsr)
+    vals = cp["ell"][cp["ell"][:, 1] != 0, 1].view(np.float32)
+    assert len(vals) == 4 and np.isnan(vals).sum() == 1 and not (vals == 0).any()
+    assert cp["rows"] == 64 and len(cp["unit_ptr"]) == 2
+    masks = {int(c): int(m) for c, m in zip(cp["unit_col"], cp["unit_mask"])}
+    assert masks == {0: 0b111, 1: 0b111}
+    for e in range(len(cp["unit_col"])):  # one slab a unit
+        assert not unit_slots(cp, e)[:, 8:12].any()  # row block 2 stores only zeros
+
+
+def emulate_kernel(bsr, flat):
+    """The CUDA kernel's rule on the CPU, from compact_bsr, in float32: one
+    product per nonzero entry, then, per (unit, slab) whose row block stores
+    a block, NaN where the hour's non-finite field values in the slab's
+    columns (n_t) outnumber those met at the row's nonzeros (m)."""
+    cp = tbs.compact_bsr(bsr)
+    T, C = flat.shape
+    bb, bc, R, width = bsr["block_b"], bsr["block_c"], cp["rows"], cp["width"]
+    slabs = -(-bc // width)
+    f = np.zeros((T, bsr["C_pad"]), dtype=np.float32)
+    f[:, :C] = flat
+    nsr = len(cp["unit_ptr"]) - 1
+    out = np.zeros((T, nsr * R), dtype=np.float32)
+    for s in range(nsr):
+        for u in range(cp["unit_ptr"][s], cp["unit_ptr"][s + 1]):
+            for j in range(slabs):
+                c0 = int(cp["unit_col"][u]) * bc + j * width
+                tile = f[:, c0:c0 + min(width, bc - j * width)]
+                bad = ~np.isfinite(tile)
+                slots = unit_slots(cp, u * slabs + j)
+                for rr in range(R):
+                    live = slots[:, rr, 1] != 0
+                    cols, w = slots[live, rr, 0], slots[live, rr, 1].view(np.float32)
+                    acc = out[:, s * R + rr]
+                    for c, wc in zip(cols, w):
+                        acc = acc + wc * tile[:, c]
+                    if (int(cp["unit_mask"][u]) >> (rr // bb)) & 1:
+                        acc = np.where(bad.sum(1) > bad[:, cols].sum(1), np.float32(np.nan), acc)
+                    out[:, s * R + rr] = acc
+    return out[:, :bsr["B"]]
+
+
+def inf_only_case():
+    """A row whose only entries at a +-Inf cell are nonzero (+-Inf, not
+    NaN), rows with a stored zero there (NaN), +Inf meeting a negative
+    weight (-Inf)."""
+    m = sp.lil_matrix((8, 40), dtype=np.float32)
+    m[0, 0:8] = 1.0
+    m[1, 3] = 2.0
+    m[2, 5] = -1.0
+    m[5, 12] = 1.0
+    flat = np.ones((3, 40), dtype=np.float32)
+    flat[0, 3], flat[1, 3], flat[2, 5] = np.inf, -np.inf, np.inf
+    return m.tocsr(), flat
+
+
+def nonfinite_case(values, bb=8, bc=256, seed=0):
+    m, flat = random_case()
+    rng = np.random.default_rng(seed)
+    for v in values:
+        flat[rng.integers(0, flat.shape[0], 4), rng.integers(0, flat.shape[1], 4)] = v
+    flat[:, m.indices[0]] = values[0]  # a cell of the first stored entry, at every hour
+    return m, flat, bb, bc
+
+
+def region_case(values, seed=1):
+    """chip_smoke's region matrix on a 13 x 23 grid: one nonzero a column,
+    4 x 8 regions, two row blocks of 16 per region row."""
+    iy = np.minimum(np.arange(13) * 4 // 13, 3)
+    ix = np.minimum(np.arange(23) * 8 // 23, 7)
+    bus = (iy[:, None] * 8 + ix[None, :]).ravel()
+    C = bus.size
+    m = sp.csr_matrix((np.ones(C, dtype=np.float32), (bus, np.arange(C))), shape=(32, C))
+    rng = np.random.default_rng(seed)
+    flat = rng.random((9, C), dtype=np.float32)
+    for v in values:
+        flat[rng.integers(0, 9, 3), rng.integers(0, C, 3)] = v
+    return m, flat, 4, 64
+
+
+def weights_nonfinite_case():
+    flat = np.ones((5, 16), dtype=np.float32)
+    flat[0, 7], flat[1, 3], flat[2, 12], flat[3, 1] = np.inf, -np.inf, np.nan, np.inf
+    return weights_case(), flat, 4, 8
+
+
+NONFINITE = {
+    "weights": weights_nonfinite_case,
+    "nan": lambda: nonfinite_case([np.nan]),
+    "+inf": lambda: nonfinite_case([np.inf]),
+    "-inf": lambda: nonfinite_case([-np.inf]),
+    "mixed-32x512": lambda: nonfinite_case([np.inf, -np.inf, np.nan], 32, 512, seed=1),
+    "inf-only-at-nonzeros": lambda: (*inf_only_case(), 4, 8),
+    "regions": lambda: region_case([np.inf, -np.inf, np.nan]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NONFINITE))
+def test_kernel_rule_matches_jax(name):
+    m, flat, bb, bc = NONFINITE[name]()
+    bsr = jbs.to_bsr(m, bb, bc)
+    with jax.enable_x64(False):
+        want = np.asarray(jbs.bsr_spmm(bsr, flat))
+        with mock.patch.object(pl, "pallas_call", interp):
+            want_pallas = np.asarray(jbs.bsr_spmm_pallas(bsr, flat, time_tile=8))
+    got = emulate_kernel(tbs.to_bsr(m, bb, bc), flat)
+    assert np.isinf(want).any() or name == "nan"
+    assert_same(got, want)
+    assert_same(got, want_pallas)
+    if name == "inf-only-at-nonzeros":
+        inf, nan = np.inf, np.nan
+        assert_same(got[:, :4], [[inf, inf, nan, nan], [-inf, -inf, nan, nan], [inf, nan, -inf, nan]])
+
+
+@pytest.mark.parametrize("name", sorted(NONFINITE))
+def test_plain_bsr_matches_jax_on_nonfinite_cells(name):
+    m, flat, bb, bc = NONFINITE[name]()
+    with jax.enable_x64(False):
+        want = np.asarray(jbs.bsr_spmm(jbs.to_bsr(m, bb, bc), flat))
+    f = torch.as_tensor(flat)
+    for fn in (tbs.bsr_spmm, tbs.bsr_spmm_scan, tbs.bsr_spmm_kernel):
+        assert_same(fn(tbs.to_bsr(m, bb, bc), f).numpy(), want)
