@@ -1,5 +1,9 @@
 """Converters: weather fields -> energy time series (counterpart of
-``atlite_tpu/convert.py``), for wind and PV.
+``atlite_tpu/convert.py``): wind, PV, irradiation, solar thermal, CSP, the
+temperature family, heat-pump COP, degree-day demand and runoff, plus the
+single-line rating of the IEEE-738 case.  ``hydro`` and ``line_rating``
+need basin and line geometry and wait for the GIS slice; their physics is
+in ``physics/hydro.py`` and ``physics/line_rating.py``.
 
 ``convert_and_aggregate`` is the gateway: it composes the spatial
 aggregation (``matrix``, ``layout``), per-unit normalisation and the
@@ -17,7 +21,9 @@ from __future__ import annotations
 
 import re
 import warnings
+from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
@@ -27,9 +33,21 @@ from torch.profiler import record_function
 from atlite_tpu_torch.aggregate import aggregate_matrix, spdiag, spmm_closure
 from atlite_tpu_torch.core import timeutil
 from atlite_tpu_torch.dataarray import DataArray
-from atlite_tpu_torch.physics import irradiation, orientation, pv as pv_physics, solar
+from atlite_tpu_torch.entry import resolve_device
+from atlite_tpu_torch.physics import csp as csp_physics
+from atlite_tpu_torch.physics import irradiation as irradiation_physics
+from atlite_tpu_torch.physics import line_rating as line_rating_physics
+from atlite_tpu_torch.physics import orientation, solar, thermal
+from atlite_tpu_torch.physics import pv as pv_physics
 from atlite_tpu_torch.physics import wind as wind_physics
-from atlite_tpu_torch.resource import get_solarpanelconfig, get_windturbineconfig
+from atlite_tpu_torch.resource import (
+    get_cspinstallationconfig,
+    get_solarpanelconfig,
+    get_windturbineconfig,
+)
+
+_GIS_SLICE = ("needs {what} geometry and the GIS slice, not ported yet (ROADMAP queue 1, "
+              "item 8); its physics is ported: {physics}")
 
 
 def _tyx(cutout, values, name=None, attrs=None):
@@ -192,19 +210,48 @@ def _streaming_vars(cutout, convert_func, convert_kwds):
         speeds = {v for v in have if re.fullmatch(r"wnd\d+m", v)}
         method = convert_kwds.get("interpolation_method", "logarithmic")
         return speeds | ({"roughness"} if method == "logarithmic" else {"wnd_shear_exp"})
-    if convert_func is convert_pv:
-        solar_vars = {"solar_altitude", "solar_azimuth"} & have
-        influx = ({"influx"} if "influx" in have else
-                  {"influx_direct", "influx_diffuse"}) | {"influx_toa"}
-        albedo = {"albedo"} if "albedo" in have else {"outflux"} & have
-        return influx | albedo | solar_vars | ({"humidity"} & have) | {"temperature"}
+    solar_vars = {"solar_altitude", "solar_azimuth"} & have
+    influx = ({"influx"} if "influx" in have else
+              {"influx_direct", "influx_diffuse"}) | {"influx_toa"}
+    albedo = {"albedo"} if "albedo" in have else {"outflux"} & have
+    # humidity feeds the enhanced clearsky split of an "influx" cutout
+    humidity = {"humidity"} & have
+    if convert_func in (convert_pv, convert_solar_thermal):
+        return influx | albedo | solar_vars | humidity | {"temperature"}
+    if convert_func is convert_irradiation:
+        return influx | albedo | solar_vars | humidity | ({"temperature"} & have)
+    if convert_func is convert_csp:
+        return ({"influx_direct"} & have) | solar_vars
+    if convert_func in (convert_temperature, convert_heat_demand, convert_cooling_demand):
+        return {"temperature"}
+    if convert_func is convert_soil_temperature:
+        return {"soil temperature"}
+    if convert_func is convert_dewpoint_temperature:
+        return {"dewpoint temperature"}
+    if convert_func is convert_coefficient_of_performance:
+        air = convert_kwds.get("source", "air") == "air"
+        return {"temperature" if air else "soil temperature"}
+    if convert_func is convert_runoff:
+        return {"runoff"} | ({"height"} if convert_kwds.get("weight_with_height", True) else set())
     return None
 
 
-def _chunk_bounds(cutout, time_chunk):
-    """[t0, t1, ...] chunk boundaries along the hour axis."""
+def _chunk_bounds(cutout, convert_func, time_chunk, convert_kwds):
+    """[t0, t1, ...] chunk boundaries along the hour axis: every
+    ``time_chunk`` hours, or, for converters marked ``_day_aligned``, at
+    the first day edge (after ``hour_shift``) at least ``time_chunk``
+    hours on, so that no day is split between chunks."""
     T = len(cutout.grid_desc.time)
-    return list(range(0, T, time_chunk)) + [T]
+    if not getattr(convert_func, "_day_aligned", False):
+        return list(range(0, T, time_chunk)) + [T]
+    _, ids = timeutil.daily_groups(cutout.grid_desc.time, convert_kwds.get("hour_shift", 0.0))
+    starts = np.flatnonzero(np.r_[True, np.diff(ids) != 0])
+    bounds = [0]
+    for s in starts[1:]:
+        if int(s) - bounds[-1] >= time_chunk:
+            bounds.append(int(s))
+    bounds.append(T)
+    return bounds
 
 
 class _Stager:
@@ -289,7 +336,9 @@ def _chunked_convert(cutout, convert_func, time_chunk, aggregate=None, stream_pa
     With ``aggregate=(csr_matrix, index, bus_name)`` each chunk is
     aggregated on the device right after its conversion.  Converters
     marked ``_time_elementwise`` slide a short last window back to a full
-    chunk and drop the overlap, so every chunk has one shape.
+    chunk and drop the overlap, so every chunk has one shape; the
+    ``_day_aligned`` demand converters stream whole days in chunks of
+    varying length (``_chunk_bounds``) and return one step a day.
     """
     T = len(cutout.grid_desc.time)
     if T == 0 or time_chunk <= 0:
@@ -310,7 +359,7 @@ def _chunked_convert(cutout, convert_func, time_chunk, aggregate=None, stream_pa
         matrix, index, bus_name = aggregate
         agg_fn = spmm_closure(matrix)
 
-    bounds = _chunk_bounds(cutout, time_chunk)
+    bounds = _chunk_bounds(cutout, convert_func, time_chunk, convert_kwds)
     windows = [[bounds[i], bounds[i + 1], 0] for i in range(len(bounds) - 1)]
     if getattr(convert_func, "_time_elementwise", False) and len(windows) > 1:
         t0_l, t1_l, _ = windows[-1]
@@ -351,7 +400,97 @@ def _chunked_convert(cutout, convert_func, time_chunk, aggregate=None, stream_pa
 
 
 # ---------------------------------------------------------------------------
-# solar: pv
+# temperature family
+# ---------------------------------------------------------------------------
+def convert_temperature(cutout):
+    return _tyx(cutout, thermal.temperature_celsius(cutout.fields()))
+
+
+def temperature(cutout, **params):
+    """Ambient temperature [degC]."""
+    return cutout.convert_and_aggregate(convert_func=convert_temperature, **params)
+
+
+def convert_soil_temperature(cutout):
+    return _tyx(cutout, thermal.soil_temperature_celsius(cutout.fields()))
+
+
+def soil_temperature(cutout, **params):
+    """Soil temperature [degC], 0 at the sea's NaN cells."""
+    return cutout.convert_and_aggregate(convert_func=convert_soil_temperature, **params)
+
+
+def convert_dewpoint_temperature(cutout):
+    return _tyx(cutout, thermal.dewpoint_temperature_celsius(cutout.fields()))
+
+
+def dewpoint_temperature(cutout, **params):
+    """Dewpoint temperature [degC]."""
+    return cutout.convert_and_aggregate(convert_func=convert_dewpoint_temperature, **params)
+
+
+def convert_coefficient_of_performance(cutout, source, sink_T, c0, c1, c2):
+    if source not in ("air", "soil"):
+        raise NotImplementedError("'source' must be one of ['air', 'soil']")
+    fields = cutout.fields()
+    if source == "air":
+        source_T = thermal.temperature_celsius(fields)
+    else:
+        source_T = thermal.soil_temperature_celsius(fields)
+    d0, d1, d2 = thermal.COP_COEFFS[source]
+    c0 = d0 if c0 is None else c0
+    c1 = d1 if c1 is None else c1
+    c2 = d2 if c2 is None else c2
+    return _tyx(cutout, thermal.coefficient_of_performance(source_T, sink_T, c0, c1, c2))
+
+
+def coefficient_of_performance(cutout, source="air", sink_T=55.0, c0=None, c1=None, c2=None,
+                               **params):
+    """Heat-pump COP from the ambient (``source="air"``) or soil
+    temperature, by the quadratic regressions of ``thermal.COP_COEFFS``."""
+    return cutout.convert_and_aggregate(
+        convert_func=convert_coefficient_of_performance,
+        source=source, sink_T=sink_T, c0=c0, c1=c1, c2=c2, **params)
+
+
+# ---------------------------------------------------------------------------
+# heat / cooling demand: one step a day
+# ---------------------------------------------------------------------------
+def _daily_demand(cutout, threshold, a, constant, hour_shift, kind):
+    fields = cutout.fields()
+    days, ids = timeutil.daily_groups(cutout.grid_desc.time, hour_shift)
+    daily_T = thermal.daily_mean(fields["temperature"], ids, len(days))
+    demand = thermal.degree_day_demand(daily_T, threshold, a, constant, kind)
+    g = cutout.grid_desc
+    return DataArray(demand, coords={"time": days, "y": g.y, "x": g.x},
+                     dims=("time", "y", "x"), name=f"{kind}_demand")
+
+
+def convert_heat_demand(cutout, threshold, a, constant, hour_shift):
+    return _daily_demand(cutout, threshold, a, constant, hour_shift, "heat")
+
+
+def heat_demand(cutout, threshold=15.0, a=1.0, constant=0.0, hour_shift=0.0, **params):
+    """Degree-day heat demand from the daily-mean temperature; days start
+    ``hour_shift`` hours before midnight of the stamps' clock."""
+    return cutout.convert_and_aggregate(
+        convert_func=convert_heat_demand, threshold=threshold, a=a, constant=constant,
+        hour_shift=hour_shift, **params)
+
+
+def convert_cooling_demand(cutout, threshold, a, constant, hour_shift):
+    return _daily_demand(cutout, threshold, a, constant, hour_shift, "cooling")
+
+
+def cooling_demand(cutout, threshold=23.0, a=1.0, constant=0.0, hour_shift=0.0, **params):
+    """Degree-day cooling demand from the daily-mean temperature."""
+    return cutout.convert_and_aggregate(
+        convert_func=convert_cooling_demand, threshold=threshold, a=a, constant=constant,
+        hour_shift=hour_shift, **params)
+
+
+# ---------------------------------------------------------------------------
+# solar: irradiation, pv, solar thermal
 # ---------------------------------------------------------------------------
 def _resolve_solar_position(fields, eph, lon, lat, trig_carry=False):
     """Stored solar angles (with their cached (sin, cos) pairs) when the
@@ -369,25 +508,9 @@ def _resolve_solar_position(fields, eph, lon, lat, trig_carry=False):
     return solar.solar_position(eph["declination"], eph["hour_angle0"], lon, lat)
 
 
-def _solar_chain(fields, eph, lon, lat, orient, tracking, trigon_model, clearsky_model,
-                 altitude_threshold=1.0, irradiation_kind="total", panel=None):
-    """Solar position -> orientation -> transposition [-> panel model]."""
-    sp_ = _resolve_solar_position(fields, eph, lon, lat, trig_carry=True)
-    surf = orientation.surface_orientation(sp_, lat, orient, tracking)
-    irr = irradiation.tilted_irradiation(
-        fields, sp_, surf, trigon_model=trigon_model, clearsky_model=clearsky_model,
-        tracking=tracking, altitude_threshold=altitude_threshold,
-        irradiation=irradiation_kind)
-    if panel is not None:
-        return pv_physics.solar_panel_power(irr, fields["temperature"], panel)
-    return irr
-
-
-def _run_solar_chain(cutout, orient, tracking=None, trigon_model="simple",
-                     clearsky_model="simple", irradiation_kind="total", panel=None):
-    if not isinstance(orient, dict) or "kind" not in orient:
-        orient = orientation.get_orientation(orient)
-    fields = cutout.fields()
+def _solar_inputs(cutout, fields):
+    """(ephemeris tables or None, lon, lat) as tensors on the cutout's
+    device; the tables only when the cutout stores no solar angles."""
     g = cutout.grid_desc
 
     def put(a):
@@ -396,15 +519,63 @@ def _run_solar_chain(cutout, orient, tracking=None, trigon_model="simple",
     eph = None
     if not ("solar_altitude" in fields and "solar_azimuth" in fields):
         eph = {k: put(v) for k, v in timeutil.solar_ephemeris(g.time, "0h").items()}
-    out = _solar_chain(fields, eph, put(g.x), put(g.y), orient, tracking, trigon_model,
-                       clearsky_model, irradiation_kind=irradiation_kind, panel=panel)
+    return eph, put(g.x), put(g.y)
+
+
+def _solar_chain(fields, eph, lon, lat, orient, tracking, trigon_model, clearsky_model,
+                 altitude_threshold=1.0, irradiation_kind="total", panel=None,
+                 solar_thermal_cfg=None):
+    """Solar position -> orientation -> transposition [-> panel model |
+    -> collector model]."""
+    sp_ = _resolve_solar_position(fields, eph, lon, lat, trig_carry=True)
+    surf = orientation.surface_orientation(sp_, lat, orient, tracking)
+    irr = irradiation_physics.tilted_irradiation(
+        fields, sp_, surf, trigon_model=trigon_model, clearsky_model=clearsky_model,
+        tracking=tracking, altitude_threshold=altitude_threshold,
+        irradiation=irradiation_kind)
+    if panel is not None:
+        return pv_physics.solar_panel_power(irr, fields["temperature"], panel)
+    if solar_thermal_cfg is not None:
+        cfg = solar_thermal_cfg
+        return thermal.solar_thermal_output(irr, fields["temperature"], cfg["c0"], cfg["c1"],
+                                            cfg["t_store"])
+    return irr
+
+
+def _run_solar_chain(cutout, orient, tracking=None, trigon_model="simple",
+                     clearsky_model="simple", irradiation_kind="total", panel=None,
+                     solar_thermal_cfg=None):
+    if not isinstance(orient, dict) or "kind" not in orient:
+        orient = orientation.get_orientation(orient)
+    fields = cutout.fields()
+    eph, lon, lat = _solar_inputs(cutout, fields)
+    out = _solar_chain(fields, eph, lon, lat, orient, tracking, trigon_model, clearsky_model,
+                       irradiation_kind=irradiation_kind, panel=panel,
+                       solar_thermal_cfg=solar_thermal_cfg)
     da = _tyx(cutout, out)
+    # irradiation is in W m**-2, pv is 'specific generation' in kWh/kWp,
+    # solar thermal stamps nothing
     if panel is not None:
         da.attrs["units"] = "kWh/kWp"
         da.name = "specific generation"
-    else:
+    elif solar_thermal_cfg is None:
         da.attrs["units"] = "W m**-2"
     return da
+
+
+def convert_irradiation(cutout, orientation, tracking=None, irradiation="total",
+                        trigon_model="simple", clearsky_model="simple"):
+    return _run_solar_chain(cutout, orientation, tracking, trigon_model, clearsky_model,
+                            irradiation_kind=irradiation)
+
+
+def irradiation(cutout, orientation, irradiation="total", tracking=None, clearsky_model=None,
+                trigon_model="simple", **params):
+    """Total, direct, diffuse or ground irradiation on a tilted surface."""
+    return cutout.convert_and_aggregate(
+        convert_func=convert_irradiation, orientation=orientation, tracking=tracking,
+        irradiation=irradiation, clearsky_model=clearsky_model, trigon_model=trigon_model,
+        **params)
 
 
 def convert_pv(cutout, panel, orientation, tracking=None, trigon_model="simple",
@@ -416,11 +587,28 @@ def convert_pv(cutout, panel, orientation, tracking=None, trigon_model="simple",
 def pv(cutout, panel, orientation, tracking=None, clearsky_model=None,
        trigon_model="simple", **params):
     """Downward radiation + temperature -> PV generation."""
-    if isinstance(panel, str):
+    if isinstance(panel, (str, Path)):
         panel = get_solarpanelconfig(panel)
     return cutout.convert_and_aggregate(
         convert_func=convert_pv, panel=panel, orientation=orientation, tracking=tracking,
         clearsky_model=clearsky_model, trigon_model=trigon_model, **params)
+
+
+def convert_solar_thermal(cutout, orientation, trigon_model, clearsky_model, c0, c1, t_store):
+    return _run_solar_chain(cutout, orientation, None, trigon_model, clearsky_model,
+                            solar_thermal_cfg={"c0": c0, "c1": c1, "t_store": t_store})
+
+
+def solar_thermal(cutout, orientation=None, trigon_model="simple", clearsky_model="simple",
+                  c0=0.8, c1=3.0, t_store=80.0, **params):
+    """Solar-thermal collector output; the collector faces south at 45
+    degrees unless ``orientation`` says otherwise."""
+    if orientation is None:
+        orientation = {"slope": 45.0, "azimuth": 180.0}
+    return cutout.convert_and_aggregate(
+        convert_func=convert_solar_thermal, orientation=orientation,
+        trigon_model=trigon_model, clearsky_model=clearsky_model, c0=c0, c1=c1,
+        t_store=t_store, **params)
 
 
 # ---------------------------------------------------------------------------
@@ -458,9 +646,159 @@ def wind(cutout, turbine, smooth=False, add_cutout_windspeed=False,
         interpolation_method=interpolation_method, **params)
 
 
+# ---------------------------------------------------------------------------
+# CSP
+# ---------------------------------------------------------------------------
+def convert_csp(cutout, installation):
+    fields = cutout.fields()
+    eph, lon, lat = _solar_inputs(cutout, fields)
+    sp_ = _resolve_solar_position(fields, eph, lon, lat)
+    out = csp_physics.csp_specific_generation(fields, sp_, installation)
+    return _tyx(cutout, out, name="specific generation", attrs={"units": "kWh/kW_ref"})
+
+
+def csp(cutout, installation, technology=None, **params):
+    """CSP generation from direct radiation: ``installation`` by name or
+    config; ``technology`` ('parabolic trough' or 'solar tower') overrides
+    the installation's."""
+    if isinstance(installation, (str, Path)):
+        installation = get_cspinstallationconfig(installation)
+    if technology is not None:
+        installation = dict(installation, technology=technology)
+    return cutout.convert_and_aggregate(convert_func=convert_csp, installation=installation,
+                                        **params)
+
+
+# ---------------------------------------------------------------------------
+# hydro: runoff, and the basin-routed inflow
+# ---------------------------------------------------------------------------
+def convert_runoff(cutout, weight_with_height=True):
+    fields = cutout.fields()
+    runoff_ = fields["runoff"]
+    if weight_with_height:
+        runoff_ = runoff_ * fields["height"]
+    return _tyx(cutout, runoff_)
+
+
+def _year_of(labels):
+    """Integer years of index labels: stamps (datetime64, or objects with
+    a ``year``) by their year, anything else as an int."""
+    a = np.asarray(labels)
+    if a.dtype.kind == "M":
+        return a.astype("datetime64[Y]").astype(np.int64) + 1970
+    return np.array([int(getattr(v, "year", v)) for v in a.tolist()], dtype=np.int64)
+
+
+def _yearly_totals(stats):
+    """(years, totals, labels) of yearly statistics: a mapping {year:
+    total} or {year: {bus: total}}, or a pandas-like Series (``index``,
+    ``values``) or DataFrame (also ``columns``).  ``totals`` is (n_years,)
+    with ``labels`` None, or (n_years, n_labels)."""
+    if isinstance(stats, Mapping):
+        years = list(stats)
+        rows = [stats[y] for y in years]
+        if rows and isinstance(rows[0], Mapping):
+            labels = list(rows[0])
+            totals = np.array([[row.get(b, np.nan) for b in labels] for row in rows], float)
+            return _year_of(years), totals, np.asarray(labels)
+        return _year_of(years), np.asarray(rows, dtype=float), None
+    totals = np.asarray(stats.values, dtype=float)
+    labels = np.asarray(stats.columns) if totals.ndim == 2 else None
+    return _year_of(stats.index), totals, labels
+
+
+def runoff(cutout, smooth=None, lower_threshold_quantile=None, normalize_using_yearly=None,
+           **params):
+    """Runoff series, optionally smoothed by a trailing mean (``smooth``
+    hours; True is a week, False/None/0 none), floored at a quantile
+    (values below it set to 0; True is 0.5%), and scaled so that each
+    bus's sum over the full years matches ``normalize_using_yearly``."""
+    result = cutout.convert_and_aggregate(convert_func=convert_runoff, **params)
+    two = isinstance(result, tuple)
+    res = result[0] if two else result
+
+    if smooth:
+        if smooth is True:
+            smooth = 24 * 7
+        res = res.rolling_mean("time", smooth, min_periods=1)
+
+    if lower_threshold_quantile is not None:
+        if lower_threshold_quantile is True:
+            lower_threshold_quantile = 5e-3
+        values = res.to_numpy()
+        thr = np.nanquantile(values.ravel(), lower_threshold_quantile)
+        res = res.copy(np.where(values >= thr, values, 0.0))
+
+    if normalize_using_yearly is not None:
+        stat_years, totals, labels = _yearly_totals(normalize_using_yearly)
+        years = _year_of(res.coords["time"])
+        uniq, counts = np.unique(years, return_counts=True)
+        full = np.intersect1d(uniq[counts > 8700], stat_years)
+        if not len(full):
+            raise ValueError("Need at least a full year of data (more is better)")
+        lo, hi = int(full.min()), int(full.max())
+        sel = (years >= lo) & (years <= hi)
+        target = totals[(stat_years >= lo) & (stat_years <= hi)].sum(axis=0)
+        taxis = res.dims.index("time")
+        bus_dim = res.dims[1 - taxis]
+        if labels is not None:
+            # align the per-bus totals to the result's bus labels
+            pos = {v: i for i, v in enumerate(labels.tolist())}
+            target = np.array([target[pos[b]] if b in pos else np.nan
+                               for b in res.coords[bus_dim].tolist()])
+        values = res.to_numpy()
+        denom = values[:, sel].sum(axis=1) if taxis == 1 else values[sel].sum(axis=0)
+        scale = np.asarray(target) / denom
+        res = res.copy(values * (scale[:, None] if taxis == 1 else scale[None, :]))
+
+    return (res, result[1]) if two else res
+
+
+def hydro(cutout, plants, hydrobasins, flowspeed=1, weight_with_height=False,
+          show_progress=False, **kwargs):
+    """Per-plant inflow from basin-aggregated runoff: not ported yet."""
+    raise NotImplementedError("hydro " + _GIS_SLICE.format(
+        what="basin", physics="physics/hydro.py shift_and_aggregate, travel_hours"))
+
+
+# ---------------------------------------------------------------------------
+# dynamic line rating
+# ---------------------------------------------------------------------------
+def convert_line_rating(ds, psi, R, D=0.028, Ts=373, epsilon=0.6, alpha=0.6, per_unit=False,
+                        device=None):
+    """Ampacity [A] of one line from a dict of per-cell fields
+    (``temperature``, ``wnd100m``, ``height``, ``wnd_azimuth``,
+    ``influx_direct``, ``solar_altitude``, ``solar_azimuth``): tensors stay
+    on their device, arrays go to ``device`` (default: the CUDA card).
+    ``psi`` passes through ``radians()`` as in the reference;
+    ``per_unit`` is accepted and unused, as there."""
+    del per_unit
+    target = None
+    fields = {}
+    for k, v in ds.items():
+        if not isinstance(v, torch.Tensor):
+            target = target or resolve_device(device)
+            a = np.asarray(v)
+            v = torch.as_tensor(a if a.dtype.kind == "f" else a.astype(float), device=target)
+        fields[k] = v
+    return line_rating_physics.ampacity(fields, psi, R, D, Ts, epsilon, alpha)
+
+
+def line_rating(cutout, shapes, line_resistance, show_progress=False, dask_kwargs=None,
+                **params):
+    """Dynamic line rating of line geometries: not ported yet."""
+    raise NotImplementedError("line_rating " + _GIS_SLICE.format(
+        what="line", physics="physics/line_rating.py batched_line_rating"))
+
+
 # Streaming contract: a converter marked _time_elementwise treats every
 # hour on its own, so the streamer may slide the tail window back to a
-# full chunk and drop the overlap.
-for _f in (convert_wind, convert_pv):
+# full chunk and drop the overlap; _day_aligned converters resample whole
+# days and stream over day-aligned chunks of varying length instead.
+for _f in (convert_wind, convert_pv, convert_irradiation, convert_solar_thermal, convert_csp,
+           convert_temperature, convert_soil_temperature, convert_dewpoint_temperature,
+           convert_coefficient_of_performance, convert_runoff):
     _f._time_elementwise = True
+for _f in (convert_heat_demand, convert_cooling_demand):
+    _f._day_aligned = True
 del _f

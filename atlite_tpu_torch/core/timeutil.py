@@ -110,3 +110,21 @@ def solar_ephemeris(time, time_shift="0h") -> dict[str, np.ndarray]:
     dec = np.arcsin(np.sin(ep) * np.sin(ecl))
 
     return {"declination": dec, "hour_angle0": h0}
+
+
+def daily_groups(time, hour_shift=0.0):
+    """Group hourly stamps into days after a shift of ``hour_shift`` hours
+    (xarray's ``assign_coords(time=time + shift).resample(time='1D')``).
+
+    Returns ``(days, group_ids)``: the ``datetime64[ns]`` day starts in
+    order of first appearance and a (T,) int32 map of each stamp to its
+    day.
+    """
+    shift = np.timedelta64(round(float(hour_shift) * _NS["h"]), "ns")
+    days = (to_datetime64(time) + shift).astype("datetime64[D]")
+    _, first, inverse = np.unique(days, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    uniq = days[np.sort(first)].astype("datetime64[ns]")
+    return uniq, rank[inverse.reshape(-1)].astype(np.int32)

@@ -7,7 +7,9 @@ slice made by ``isel_time`` (the streamer's chunk) stages all its time
 fields in one batched upload, raw or packed as CF int16 codes
 (``pack_params``), and reuses its parent's staged static fields.
 
-The on-disk ``.atc`` store, NetCDF files, ``sel``/``merge`` and the GIS
+Every converter of the JAX Cutout is bound; ``hydro`` and ``line_rating``
+raise until the GIS slice gives them basin and line geometry.  The
+on-disk ``.atc`` store, NetCDF files, ``sel``/``merge`` and the GIS
 methods wait for later slices (ROADMAP queue 1, items 8 and 10).
 """
 
@@ -19,7 +21,7 @@ import warnings
 import numpy as np
 import torch
 
-from atlite_tpu_torch.convert import convert_and_aggregate, pv, wind
+from atlite_tpu_torch import convert
 from atlite_tpu_torch.core.grid import Grid, coordinate_range
 from atlite_tpu_torch.datasets import modules as datamodules
 from atlite_tpu_torch.entry import resolve_device
@@ -310,9 +312,21 @@ class Cutout:
         return self._static_cache
 
     # ------------------------------------------------ conversion bindings
-    convert_and_aggregate = convert_and_aggregate
-    wind = wind
-    pv = pv
+    convert_and_aggregate = convert.convert_and_aggregate
+    temperature = convert.temperature
+    soil_temperature = convert.soil_temperature
+    dewpoint_temperature = convert.dewpoint_temperature
+    coefficient_of_performance = convert.coefficient_of_performance
+    heat_demand = convert.heat_demand
+    cooling_demand = convert.cooling_demand
+    solar_thermal = convert.solar_thermal
+    wind = convert.wind
+    irradiation = convert.irradiation
+    pv = convert.pv
+    csp = convert.csp
+    runoff = convert.runoff
+    hydro = convert.hydro  # raises until the GIS slice
+    line_rating = convert.line_rating  # raises until the GIS slice
 
 
 def _derive_solar_trig(cache):

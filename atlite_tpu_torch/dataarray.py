@@ -3,9 +3,9 @@
 
 ``values`` is a torch tensor (on the device that computed it) or a numpy
 array; ``coords`` are numpy arrays, time as ``datetime64[ns]``.  It
-carries only what ``convert_and_aggregate`` needs: sizes, copies,
-``load``/``to_numpy`` to the host, and ``sum``/``mean`` over a dimension
-with xarray's skipna rule.
+carries only what the converters need: sizes, copies, ``load``/
+``to_numpy`` to the host, ``sum``/``mean`` over a dimension with xarray's
+skipna rule, and the NaN-skipping trailing ``rolling_mean``.
 """
 
 from __future__ import annotations
@@ -95,3 +95,25 @@ class DataArray:
 
     def mean(self, dim=None, **kw):
         return self._reduce(np.mean, np.nanmean, dim, **kw)
+
+    def rolling_mean(self, dim, window, min_periods=1):
+        """Trailing rolling mean over ``window`` steps of ``dim`` that skips
+        NaN (xarray's ``rolling(dim=window, min_periods=...).mean()``): a
+        NaN leaves both the window's sum and its count; a window with
+        fewer than ``min_periods`` values is NaN.  Float64, on the host."""
+        window = int(window)
+        if window < 1:
+            raise ValueError(f"rolling_mean window must be >= 1, got {window}")
+        axis = self.dims.index(dim)
+        # the window runs along the last, contiguous axis
+        v = np.ascontiguousarray(np.moveaxis(np.asarray(self.to_numpy(), dtype=float), axis, -1))
+        valid = ~np.isnan(v)
+        # window sum at step i: csum[i] - csum[i - window]
+        s = np.cumsum(np.where(valid, v, 0.0), axis=-1)
+        c = np.cumsum(valid, axis=-1, dtype=np.int64)
+        if window < s.shape[-1]:
+            s[..., window:] -= s[..., :-window].copy()
+            c[..., window:] -= c[..., :-window].copy()
+        with np.errstate(invalid="ignore"):
+            out = np.where(c >= max(min_periods, 1), s / np.maximum(c, 1), np.nan)
+        return self.copy(np.moveaxis(out, -1, axis))

@@ -1,10 +1,10 @@
 """Tilted-plane irradiation (counterpart of
 ``atlite_tpu/physics/irradiation.py``).
 
-Reindl decomposition of global horizontal irradiance, the 'simple'
-trigonometric transposition, ground reflection via albedo and the low-sun
-suppression mask.  Night-time NaN paths are zeroed by the same masks the
-reference applies.  Hay-Davies is not ported yet.
+Reindl decomposition of global horizontal irradiance, transposition by the
+'simple' trigonometric model or Hay-Davies, ground reflection via albedo
+and the low-sun suppression mask.  Night-time NaN paths are zeroed by the
+same masks the reference applies.
 """
 
 from __future__ import annotations
@@ -75,12 +75,9 @@ def tilted_irradiation(
 
     fields: dict of (T, Y, X) tensors with either 'influx' (global
     horizontal) or 'influx_direct' + 'influx_diffuse', plus 'influx_toa'
-    and albedo info.
+    and albedo info.  ``trigon_model`` is 'simple'; any other name is the
+    Hay-Davies model.
     """
-    if trigon_model != "simple":
-        raise NotImplementedError(
-            f"trigon_model={trigon_model!r} is not ported yet (ROADMAP queue "
-            "1, item 7: Hay-Davies in irradiation.py)")
     influx_toa = fields["influx_toa"]
     if "sin_altitude" in solar_position:
         sinaltitude = solar_position["sin_altitude"]
@@ -115,18 +112,34 @@ def tilted_irradiation(
             "dataset. Check your cutout and dataset module."
         )
 
-    k_geom = cosincidence / sinaltitude
-    if tracking != "dual":
-        cos_surface_slope = torch.cos(torch.as_tensor(surface_slope))
-    else:
-        cos_surface_slope = sinaltitude
+    surface_slope = torch.as_tensor(surface_slope)
     influx = direct + diffuse
-    direct_t = k_geom * direct
-    diffuse_t = (1.0 + cos_surface_slope) / 2.0 * diffuse
-    ground_t = _albedo(fields, influx) * influx * ((1.0 - cos_surface_slope) / 2.0)
-    total_t = (torch.nan_to_num(direct_t, nan=0.0)
-               + torch.nan_to_num(diffuse_t, nan=0.0)
-               + torch.nan_to_num(ground_t, nan=0.0))
+    if trigon_model == "simple":
+        k_geom = cosincidence / sinaltitude
+        # only the simple model reads the sun's altitude as the dual
+        # tracker's slope
+        cos_surface_slope = torch.cos(surface_slope) if tracking != "dual" else sinaltitude
+        direct_t = k_geom * direct
+        diffuse_t = (1.0 + cos_surface_slope) / 2.0 * diffuse
+        ground_t = _albedo(fields, influx) * influx * ((1.0 - cos_surface_slope) / 2.0)
+        total_t = (torch.nan_to_num(direct_t, nan=0.0)
+                   + torch.nan_to_num(diffuse_t, nan=0.0)
+                   + torch.nan_to_num(ground_t, nan=0.0))
+    else:
+        # Hay-Davies anisotropic diffuse: horizon brightening f,
+        # anisotropy index A, beam ratio R_b
+        f = torch.nan_to_num(torch.sqrt(direct / influx), nan=0.0)
+        A = direct / influx_toa
+        R_b = cosincidence / sinaltitude
+        diffuse_t = (
+            (1.0 - A) * ((1 + torch.cos(surface_slope)) / 2.0)
+            * (1.0 + f * torch.sin(surface_slope / 2.0) ** 3)
+            + A * R_b
+        ) * diffuse
+        diffuse_t = torch.nan_to_num(torch.clamp(diffuse_t, min=0.0), nan=0.0)
+        direct_t = R_b * direct
+        ground_t = influx * _albedo(fields, influx) * (1.0 - torch.cos(surface_slope)) / 2.0
+        total_t = direct_t + diffuse_t + ground_t
 
     result = {
         "total": total_t, "direct": direct_t, "diffuse": diffuse_t, "ground": ground_t,

@@ -2,8 +2,9 @@
 ``atlite_tpu/physics/orientation.py``).
 
 Conventions: ``slope`` is the panel-ground angle; ``azimuth`` is clockwise
-from North (pi faces South); all angles in radians.  Only fixed panels
-(``tracking=None``) are ported so far.
+from North (pi faces South); all angles in radians.  Fixed panels and the
+four tracking modes (``horizontal``, ``tilted_horizontal``, ``vertical``,
+``dual``).
 """
 
 from __future__ import annotations
@@ -66,30 +67,63 @@ def orientation_fields(spec, lat):
 
 
 def surface_orientation(solar_position, lat, orientation_spec, tracking=None):
-    """cos(incidence), slope and panel azimuth of a fixed panel; negative
-    cos(incidence) (sun behind the panel) is clipped to 0."""
+    """cos(incidence), effective slope and panel azimuth for a fixed panel
+    or a tracking mode; negative cos(incidence) (sun behind the panel) is
+    clipped to 0.
+
+    The tilted single-axis tracker moves its rotation angle into the
+    sun's half-plane (the quadrant fix-ups); ``vertical`` and ``dual``
+    return the static slope and azimuth of the orientation, as the
+    reference does.
+    """
     if tracking not in TRACKING_MODES:
         raise AssertionError(
             "tracking must be None, 'horizontal', 'tilted_horizontal', "
             "'vertical' or 'dual'"
         )
-    if tracking is not None:
-        raise NotImplementedError(
-            f"tracking={tracking!r} is not ported yet (ROADMAP queue 1, "
-            "item 7: tracking modes in orientation.py)")
-
     slope, panel_az = orientation_fields(orientation_spec, lat)
     slope = torch.as_tensor(slope, dtype=lat.dtype, device=lat.device)
     panel_az = torch.as_tensor(panel_az, dtype=lat.dtype, device=lat.device)
     sp = solar_position_trig(solar_position)
+    az = sp["azimuth"]
     sin_alt, cos_alt = sp["sin_altitude"], sp["cos_altitude"]
-    # cos(panel_az - az) = cos(panel_az) cos(az) + sin(panel_az) sin(az)
-    cos_rel = (torch.cos(panel_az) * sp["cos_azimuth"]
-               + torch.sin(panel_az) * sp["sin_azimuth"])
-    cosincidence = torch.sin(slope) * cos_alt * cos_rel + torch.cos(slope) * sin_alt
+    surface_slope, surface_azimuth = slope, panel_az
+
+    if tracking is None:
+        # cos(panel_az - az) = cos(panel_az) cos(az) + sin(panel_az) sin(az)
+        cos_rel = (torch.cos(panel_az) * sp["cos_azimuth"]
+                   + torch.sin(panel_az) * sp["sin_azimuth"])
+        cosincidence = torch.sin(slope) * cos_alt * cos_rel + torch.cos(slope) * sin_alt
+    elif tracking == "horizontal":
+        # one horizontal axis along the panel azimuth
+        rotation = torch.arctan((cos_alt / sin_alt) * torch.sin(az - panel_az))
+        surface_slope = torch.abs(rotation)
+        surface_azimuth = panel_az + torch.arcsin(torch.sin(rotation) / torch.sin(surface_slope))
+        cosincidence = (torch.cos(surface_slope) * sin_alt
+                        + torch.sin(surface_slope) * cos_alt * torch.cos(az - surface_azimuth))
+    elif tracking == "tilted_horizontal":
+        rotation = torch.arctan(
+            (cos_alt * torch.sin(az - panel_az))
+            / (cos_alt * torch.cos(az - panel_az) * torch.sin(slope)
+               + sin_alt * torch.cos(slope)))
+        surface_slope = torch.arccos(torch.cos(rotation) * torch.cos(slope))
+        dazi = az - panel_az
+        dazi = torch.where(dazi > math.pi, dazi - 2 * math.pi, dazi)
+        dazi = torch.where(dazi < -math.pi, dazi + 2 * math.pi, dazi)
+        rotation = torch.where((rotation < 0) & (dazi > 0), rotation + math.pi, rotation)
+        rotation = torch.where((rotation > 0) & (dazi < 0), rotation - math.pi, rotation)
+        cosincidence = torch.cos(rotation) * (
+            torch.sin(slope) * cos_alt * torch.cos(az - panel_az)
+            + torch.cos(slope) * sin_alt
+        ) + torch.sin(rotation) * cos_alt * torch.sin(az - panel_az)
+    elif tracking == "vertical":
+        cosincidence = torch.sin(slope) * cos_alt + torch.cos(slope) * sin_alt
+    else:  # dual: the panel faces the sun
+        cosincidence = torch.ones_like(sin_alt)
+
     return {
         "cosincidence": torch.clamp(cosincidence, min=0.0),
-        "slope": slope,
-        "azimuth": panel_az,
+        "slope": surface_slope,
+        "azimuth": surface_azimuth,
         "tracking": tracking,
     }

@@ -1,21 +1,28 @@
-"""Turbine and solar-panel configurations (counterpart of
-``atlite_tpu/resource.py``).
+"""Turbine, solar-panel and CSP-installation configurations (counterpart
+of ``atlite_tpu/resource.py``).
 
-The JAX package reads its configurations from YAML files; the port holds
-the two it needs so far as Python literals, copied from
-``atlite_tpu/resources/windturbine/Vestas_V112_3MW.yaml`` and
-``atlite_tpu/resources/solarpanel/CSi.yaml`` (data: contributors to
-atlite, CC-BY-4.0).  Any other name raises ``KeyError``.
+The panels and CSP installations are read from copies of the JAX
+package's YAML files under ``resources/`` (data: contributors to atlite,
+CC-BY-4.0; each file keeps its attribution header) by ``load_yaml``, a
+reader of the flat subset they use, so the port needs no PyYAML.  The one
+turbine the port holds so far, ``Vestas_V112_3MW``, is a Python literal;
+other turbine names raise ``KeyError``.
 """
 
 from __future__ import annotations
 
 import copy
 import logging
+import re
+from pathlib import Path
 
 import numpy as np
 
 logger = logging.getLogger(__name__)
+
+RESOURCE_DIRECTORY = Path(__file__).parent / "resources"
+SOLARPANEL_DIRECTORY = RESOURCE_DIRECTORY / "solarpanel"
+CSPINSTALLATION_DIRECTORY = RESOURCE_DIRECTORY / "cspinstallation"
 
 _NOT_PORTED = ("is not among the configurations the port holds so far; the "
                "others wait for a later slice (ROADMAP queue 1, item 10)")
@@ -33,40 +40,124 @@ WINDTURBINES = {
     },
 }
 
-SOLARPANELS = {
-    "CSi": {
-        "model": "huld",
-        "name": "CSi",
-        "source": "Huld 2010",
-        "efficiency": 0.1,
-        "c_temp_amb": 1,
-        "c_temp_irrad": 0.035,
-        "r_tamb": 293,
-        "r_tmod": 298,
-        "r_irradiance": 1000,
-        "k_1": -0.017162,
-        "k_2": -0.040289,
-        "k_3": -0.004681,
-        "k_4": 0.000148,
-        "k_5": 0.000169,
-        "k_6": 5.0e-06,
-        "inverter_efficiency": 0.9,
-    },
-}
+solarpanels = {p.stem: p for p in sorted(SOLARPANEL_DIRECTORY.glob("*.yaml"))}
+cspinstallations = {p.stem: p for p in sorted(CSPINSTALLATION_DIRECTORY.glob("*.yaml"))}
+
+# ---------------------------------------------------------------------------
+# YAML subset: comments, ``key: scalar``, nested block mappings, one-line
+# flow lists; scalars resolve as YAML 1.1 (PyYAML's ``safe_load``) does
+# ---------------------------------------------------------------------------
+_BOOL = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"), True),
+         **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"),
+                         False)}
+_NULL = {"", "~", "null", "Null", "NULL"}
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_FLOAT = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?")
+_SPECIAL = {".inf": np.inf, ".Inf": np.inf, ".INF": np.inf, "+.inf": np.inf, "+.Inf": np.inf,
+            "+.INF": np.inf, "-.inf": -np.inf, "-.Inf": -np.inf, "-.INF": -np.inf,
+            ".nan": np.nan, ".NaN": np.nan, ".NAN": np.nan}
+# forms YAML 1.1 gives a meaning this reader does not implement
+_UNSUPPORTED = re.compile(r"[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?0x[0-9a-fA-F_]+"
+                          r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+                          r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*|[&*!|>%@`{].*|<<")
 
 
-def _lookup(table, name, kind):
-    key = str(name).replace(".yaml", "")
-    if key not in table:
-        raise KeyError(f"{kind} {name!r} {_NOT_PORTED}")
-    return copy.deepcopy(table[key])
+def _scalar(text):
+    """A plain or quoted scalar, resolved as ``yaml.safe_load`` does."""
+    if len(text) >= 2 and text[0] == text[-1] == "'":
+        return text[1:-1].replace("''", "'")
+    if len(text) >= 2 and text[0] == text[-1] == '"' and "\\" not in text:
+        return text[1:-1]
+    if text in _NULL:
+        return None
+    if text in _BOOL:
+        return _BOOL[text]
+    if _INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.fullmatch(text):
+        return float(text.replace("_", ""))
+    if text in _SPECIAL:
+        return float(_SPECIAL[text])
+    if _UNSUPPORTED.fullmatch(text) or text[:1] in "\"'":
+        raise ValueError(f"YAML scalar {text!r} is outside the subset load_yaml reads")
+    return text
+
+
+def _value(text):
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise ValueError(f"flow list {text[:40]!r}... must close on its line")
+        inner = text[1:-1].strip()
+        return [_scalar(item.strip()) for item in inner.split(",")] if inner else []
+    return _scalar(text)
+
+
+def _block(lines, i, indent):
+    """The mapping whose keys sit at ``indent``, from line ``i``; returns
+    (mapping, next line)."""
+    out = {}
+    while i < len(lines):
+        ind, text, lineno = lines[i]
+        if ind < indent:
+            break
+        if ind > indent:
+            raise ValueError(f"line {lineno}: unexpected indentation")
+        m = re.fullmatch(r"([^\s:#][^:#]*?)\s*:(?:\s+(.*))?", text)
+        if m is None:
+            raise ValueError(f"line {lineno}: not a 'key: value' line: {text!r}")
+        key, rest = _scalar(m.group(1)), (m.group(2) or "").strip()
+        i += 1
+        if rest:
+            out[key] = _value(rest)
+        elif i < len(lines) and lines[i][0] > indent:
+            out[key], i = _block(lines, i, lines[i][0])
+        else:
+            out[key] = None
+    return out, i
+
+
+def load_yaml(path):
+    """Read a YAML file of the subset the configuration files use; the
+    result equals ``yaml.safe_load``'s (``None`` the word stays a string,
+    ``1000`` is an int, ``5.0e-06`` a float)."""
+    lines = []
+    with open(path, encoding="utf-8") as f:
+        for lineno, raw in enumerate(f, 1):
+            text = re.sub(r"(^|\s)#.*$", "", raw.rstrip("\n")).rstrip()
+            if text.strip() in ("", "---"):
+                continue
+            if "\t" in text[:len(text) - len(text.lstrip())]:
+                raise ValueError(f"line {lineno}: tab in indentation")
+            lines.append((len(text) - len(text.lstrip(" ")), text.strip(), lineno))
+    if not lines:
+        return None
+    out, i = _block(lines, 0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"line {lines[i][2]}: unexpected indentation")
+    return out
+
+
+def _resolve(name, registry, kind):
+    """The file of a named configuration, or the given path."""
+    if isinstance(name, Path):
+        return name
+    if not isinstance(name, str):
+        raise KeyError(f"`{kind}` must be a str or pathlib.Path, but is {type(name)}.")
+    key = name.replace(".yaml", "")
+    if key not in registry:
+        raise KeyError(f"unknown {kind} {name!r}; available: {sorted(registry)}")
+    return registry[key]
 
 
 def get_windturbineconfig(turbine, add_cutout_windspeed=True):
     """A validated turbine config {V, POW, hub_height, P} from a name or a
     dict."""
     if isinstance(turbine, str):
-        raw = _lookup(WINDTURBINES, turbine, "turbine")
+        key = turbine.replace(".yaml", "")
+        if key not in WINDTURBINES:
+            raise KeyError(f"turbine {turbine!r} {_NOT_PORTED}")
+        raw = copy.deepcopy(WINDTURBINES[key])
         conf = dict(V=np.array(raw["V"], dtype=float),
                     POW=np.array(raw["POW"], dtype=float),
                     hub_height=raw["HUB_HEIGHT"],
@@ -79,10 +170,49 @@ def get_windturbineconfig(turbine, add_cutout_windspeed=True):
 
 
 def get_solarpanelconfig(panel):
-    """A panel config dict from a name."""
-    if not isinstance(panel, str):
-        raise KeyError(f"`panel` must be a str, but is {type(panel)}.")
-    return _lookup(SOLARPANELS, panel, "panel")
+    """A panel config dict from a name (``CSi``, ``CdTe``, ``KANENA``) or a
+    path to a YAML file."""
+    return load_yaml(_resolve(panel, solarpanels, "panel"))
+
+
+def get_cspinstallationconfig(installation):
+    """A CSP installation config from a name or a path, with its
+    efficiency table as three arrays: ``efficiency_altitude`` and
+    ``efficiency_azimuth`` (rad, ascending) and ``efficiency_table``
+    (altitude x azimuth, p.u.; NaN where the file has no entry)."""
+    path = _resolve(installation, cspinstallations, "installation")
+    config = load_yaml(path)
+    config["path"] = path
+
+    eff = config["efficiency"]
+    if isinstance(eff["altitude"], dict):
+        # a table stored as {column: {row: value}}
+        rows = sorted(eff["altitude"])
+        eff = {k: [eff[k][r] for r in rows] for k in ("altitude", "azimuth", "value")}
+    alt = np.asarray(eff["altitude"], dtype=float)  # deg
+    azi = np.asarray(eff["azimuth"], dtype=float)  # deg
+    val = np.asarray(eff["value"], dtype=float)
+    alt_u, azi_u = np.unique(alt), np.unique(azi)
+    table = np.full((len(alt_u), len(azi_u)), np.nan)
+    table[np.searchsorted(alt_u, alt), np.searchsorted(azi_u, azi)] = val
+    config["efficiency_altitude"] = np.radians(alt_u)
+    config["efficiency_azimuth"] = np.radians(azi_u)
+    config["efficiency_table"] = table / 100.0  # % -> p.u.
+    return config
+
+
+def solarpanel_rated_capacity_per_unit(panel):
+    """Rated capacity of a panel per unit: its efficiency (Huld) or its
+    power at 1000 W/m^2 (Bofinger)."""
+    if isinstance(panel, (str, Path)):
+        panel = get_solarpanelconfig(panel)
+    model = panel.get("model", "huld")
+    if model == "huld":
+        return panel["efficiency"]
+    if model == "bofinger":
+        A, B, C = panel["A"], panel["B"], panel["C"]
+        return (A + B * 1000.0 + C * np.log(1000.0)) * 1e3
+    raise ValueError(model)
 
 
 def _max_v_is_zero_pow(turbine):

@@ -29,9 +29,9 @@ Phases, in order; any failure exits non-zero:
      B=20;
   9. continental inputs: a synthetic Cutout on the 241 x 481 grid of
      bench_continental.py over T=1440 h (two 720 h chunks; the full year
-     is cut for time), prepared with wind, influx and temperature, and a
-     (2048, C) region matrix (32 x 64 rectangles) that must take the
-     banded route;
+     is cut for time), prepared with wind, influx, temperature, runoff
+     and height, and a (2048, C) region matrix (32 x 64 rectangles) that
+     must take the banded route;
  10. the continental path: ``cutout.wind``/``cutout.pv`` with the matrix,
      resident, streamed raw and streamed int16-packed in 720 h chunks;
      streamed against resident (raw within 1e-5 * max, packed within the
@@ -57,8 +57,24 @@ Phases, in order; any failure exits non-zero:
      a sparse BSR tensor and on the CSR matrix (cuSPARSE: from the (T, C)
      field, its transpose counted, and from a field transposed
      beforehand); the kernel's registers, spills, shared memory and
-     blocks an SM.
-Then one JSON line of kernels and, last, the result line.
+     blocks an SM;
+ 12. the other converters on the continental cut, each with the matrix:
+     temperature, soil and dewpoint temperature, COP (air, soil), heat
+     and cooling demand, Hay-Davies total irradiation, PV under each
+     tracking mode, solar thermal, CSP (tower, trough) and smoothed
+     runoff resident, and heat demand, soil COP and CSP also streamed raw
+     and int16 in 720 h chunks; each conversion alone timed on the card
+     by CUDA events (its output must lie on the card), each call under
+     torch.profiler with its wall s, cell-hours/s, device busy ms and idle
+     share (where the trace holds at least the conversion's device time),
+     and the byte bound of the fields it reads; outputs finite of shape (2048, T) or
+     (2048, days), streamed raw vs resident within 1e-5 * max, int16
+     within phase 10's bounds, the first 48 h (two days) against the
+     plain path on the CPU; then ``batched_line_rating`` (2048 lines of
+     16 cells, 720 h) and ``shift_and_aggregate`` (500 plants, 20,000
+     basin pairs, 1440 h) timed on the card against their CPU results.
+Then one JSON line of the converters, one of kernels and, last, the
+result line.
 """
 
 from __future__ import annotations
@@ -74,6 +90,7 @@ import scipy.sparse as sp
 import torch
 
 from atlite_tpu_torch import Cutout, aggregate, build_inputs, entry, from_jax_inputs
+from atlite_tpu_torch import convert as conv
 from atlite_tpu_torch.convert import convert_wind
 from atlite_tpu_torch.entry import HUB_HEIGHT, PANEL
 from atlite_tpu_torch.ops import _build
@@ -91,6 +108,8 @@ from atlite_tpu_torch.ops.megakernel import (
     wind_pv_bus_megakernel,
     wind_pv_bus_plain,
 )
+from atlite_tpu_torch.physics import hydro as hydro_physics
+from atlite_tpu_torch.physics import line_rating as line_rating_physics
 from atlite_tpu_torch.resource import get_windturbineconfig
 
 BENCH_SHAPE = (2184, 96, 128, 20)
@@ -304,7 +323,7 @@ def continental_inputs():
     t0 = time.perf_counter()
     cut = Cutout(module="synthetic", x=slice(-12, 18 + CONT_DX / 2),
                  y=slice(35, 60 + CONT_DY / 2), dx=CONT_DX, dy=CONT_DY, time=CONT_TIME)
-    cut.prepare(features=["wind", "influx", "temperature"])
+    cut.prepare(features=["wind", "influx", "temperature", "runoff", "height"])
     T, (Y, X) = len(cut.grid_desc.time), cut.shape
     C = Y * X
     log(f"continental inputs: T={T} Y={Y} X={X} (C={C}), {len(cut.data)} variables, "
@@ -611,6 +630,251 @@ def bsr_phase(matrix, cf, card, ptxas):
     }
 
 
+# phase 12: each converter as a user calls it (the Cutout method and its
+# arguments) and as the conversion alone (the converter and the arguments
+# the method hands it), which is timed on the card by itself; "solar" ones
+# are held card vs CPU and int16 by phase 10's PV bounds
+def _conv(name, method, kw, func, ckw, solar=False, streamed=False):
+    return {"name": name, "method": method, "kw": kw, "func": func, "ckw": ckw,
+            "solar": solar, "streamed": streamed}
+
+
+COP = {"sink_T": 55.0, "c0": None, "c1": None, "c2": None}
+DEMAND = {"a": 1.0, "constant": 0.0, "hour_shift": 0.0}
+CONVERTERS = [
+    _conv("temperature", "temperature", {}, conv.convert_temperature, {}),
+    _conv("soil_temperature", "soil_temperature", {}, conv.convert_soil_temperature, {}),
+    _conv("dewpoint_temperature", "dewpoint_temperature", {},
+          conv.convert_dewpoint_temperature, {}),
+    _conv("cop_air", "coefficient_of_performance", {"source": "air"},
+          conv.convert_coefficient_of_performance, {"source": "air", **COP}),
+    _conv("cop_soil", "coefficient_of_performance", {"source": "soil"},
+          conv.convert_coefficient_of_performance, {"source": "soil", **COP}, streamed=True),
+    _conv("heat_demand", "heat_demand", {}, conv.convert_heat_demand,
+          {"threshold": 15.0, **DEMAND}, streamed=True),
+    _conv("cooling_demand", "cooling_demand", {"threshold": -5.0}, conv.convert_cooling_demand,
+          {"threshold": -5.0, **DEMAND}),
+    _conv("irradiation_hay_davies", "irradiation",
+          {"orientation": "latitude_optimal", "trigon_model": "hay_davies"},
+          conv.convert_irradiation, {"orientation": "latitude_optimal",
+                                     "trigon_model": "hay_davies", "clearsky_model": None},
+          solar=True),
+] + [_conv(f"pv_{tr}", "pv", {"panel": "CSi", "orientation": "latitude_optimal", "tracking": tr},
+           conv.convert_pv, {"panel": "CSi", "orientation": "latitude_optimal", "tracking": tr,
+                             "clearsky_model": None}, solar=True)
+     for tr in ("horizontal", "tilted_horizontal", "vertical", "dual")] + [
+    _conv("solar_thermal", "solar_thermal", {}, conv.convert_solar_thermal,
+          {"orientation": {"slope": 45.0, "azimuth": 180.0}, "trigon_model": "simple",
+           "clearsky_model": "simple", "c0": 0.8, "c1": 3.0, "t_store": 80.0}, solar=True),
+    _conv("csp_tower", "csp", {"installation": "SAM_solar_tower"}, conv.convert_csp,
+          {"installation": "SAM_solar_tower"}, solar=True, streamed=True),
+    _conv("csp_trough", "csp", {"installation": "SAM_parabolic_trough"}, conv.convert_csp,
+          {"installation": "SAM_parabolic_trough"}, solar=True),
+    _conv("runoff_smoothed", "runoff", {"smooth": True}, conv.convert_runoff,
+          {"weight_with_height": True}),
+]
+LR_SHAPE = (2048, 16, 720)  # lines, cells a line, hours
+HYDRO_SHAPE = (500, 40, 200)  # plants, upstream basins a plant, largest shift (h)
+
+
+def field_bytes(cut, convert_func, kw, out_elems):
+    """Bytes of the stored fields a converter reads (each once) and of
+    its float32 (bus, time) output."""
+    names = conv._streaming_vars(cut, convert_func, kw)
+    names = set(cut.data) if names is None else names & set(cut.data)
+    return sum(np.asarray(cut.data[n]).nbytes for n in names) + 4 * out_elems, sorted(names)
+
+
+def converters_phase(cut, matrix, card):
+    """Phase 12: the converters beyond wind and PV on the continental cut;
+    returns their JSON entries and the resident runoff (B, T) series."""
+    T, (Y, X) = len(cut.grid_desc.time), cut.shape
+    C, B = Y * X, matrix.shape[0]
+    days = T // 24
+    modes = {"resident": {}, "streamed raw": dict(time_chunk=CHUNK),
+             "streamed int16": dict(time_chunk=CHUNK, stream_pack="int16")}
+    log(f"converters on {card} (T={T} h, {days} days, C={C}, the ({B}, C) banded matrix):")
+    entries, out = [], {}
+    for c in CONVERTERS:
+        name, method, kw = c["name"], c["method"], c["kw"]
+        n_out = days if method in ("heat_demand", "cooling_demand") else T
+        n_bytes, names = field_bytes(cut, c["func"], c["ckw"], B * n_out)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        # the conversion alone on the card (no aggregation, no host work):
+        # CUDA events over three calls; its output must lie on the card
+        ckw = dict(c["ckw"])
+        if method == "pv":
+            ckw["panel"] = conv.get_solarpanelconfig(ckw["panel"])
+        if method == "csp":
+            ckw["installation"] = conv.get_cspinstallationconfig(ckw["installation"])
+        if not c["func"](cut, **ckw).values.is_cuda:
+            raise RuntimeError(f"{name}: the conversion did not run on the card")
+        conv_ms = cuda_ms(lambda: c["func"](cut, **ckw), reps=3, warmup=1)
+        for mode in modes if c["streamed"] else ("resident",):
+            wind_pv_bus_megakernel.launches = bsr_spmm_kernel.launches = 0
+            torch.cuda.synchronize()
+            with profiled() as prof:
+                t0 = time.perf_counter()
+                res = getattr(cut, method)(matrix=matrix, aggregate_time=None, **kw,
+                                           **modes[mode])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = wind_pv_bus_megakernel.launches + bsr_spmm_kernel.launches
+            vals = np.asarray(res.values)
+            if vals.shape != (B, n_out) or not np.isfinite(vals).all():
+                raise RuntimeError(f"{name} {mode}: {vals.shape}, finite "
+                                   f"{np.isfinite(vals).all()}, want ({B}, {n_out})")
+            # the trace drops device records now and then: its busy time and
+            # idle share stand only where it holds at least the conversion's
+            idle = device_idle(prof, wall * 1e3)
+            whole = idle is not None and idle[0] >= 0.9 * conv_ms
+            trace = (f"device busy {idle[0]:.1f} ms, idle share {idle[1]:.3f}" if whole else
+                     f"the trace dropped device records ({0 if idle is None else idle[0]:.1f} "
+                     "ms of device time in it): idle share not measured")
+            log(f"  {name} {mode}: {wall:.3f} s = {T * C / wall:.4g} cell-hours/s (host work "
+                f"included, under torch.profiler); conversion alone {conv_ms:.2f} ms on the "
+                f"card (CUDA events); {trace}; byte bound of the fields it reads and its output "
+                f"{bound_ms:.3f} ms ({n_bytes / 1e9:.3f} GB at 3.35 TB/s: {', '.join(names)}); "
+                f"kernel launches {launches}")
+            entries.append({"name": name, "mode": mode, "wall_s": wall,
+                            "cell_hours_per_s": T * C / wall, "convert_ms": conv_ms,
+                            "busy_ms": idle[0] if whole else None,
+                            "idle_share": idle[1] if whole else None, "bound_ms": bound_ms,
+                            "bytes": n_bytes})
+            out[name, mode] = vals
+
+        res = out[name, "resident"]
+        scale = float(np.abs(res).max())
+        if c["streamed"]:
+            raw = float(np.abs(out[name, "streamed raw"] - res).max())
+            diff = np.abs(out[name, "streamed int16"] - res)
+            log(f"    streamed raw vs resident max {raw:.3e}; int16 vs resident max "
+                f"{diff.max():.3e}, p999 {np.quantile(diff, 0.999):.3e} (max |resident| "
+                f"{scale:.4g})")
+            if not raw <= REL_TOL * scale:
+                raise RuntimeError(f"{name}: streamed raw differs from resident by {raw}")
+            bounds = ((np.quantile(diff, 0.999), 3e-3), (diff.max(), 2e-2)) if c["solar"] \
+                else ((diff.max(), 3e-3),)
+            for got, rel in bounds:
+                if not got < rel * scale:
+                    raise RuntimeError(f"{name}: int16 vs resident {got} above {rel} * {scale}")
+
+    log("  first 48 h (two days for the demands) against the plain path on the CPU:")
+    sub = cut.isel_time(0, 48)
+    cpu = Cutout(data=sub.data, grid_desc=sub.grid_desc, attrs=sub.attrs,
+                 var_attrs=sub.var_attrs, device="cpu")
+    t0 = time.perf_counter()
+    for c in CONVERTERS:
+        name = c["name"]
+        want = np.asarray(getattr(cpu, c["method"])(matrix=matrix, aggregate_time=None,
+                                                    **c["kw"]).values)
+        got = out[name, "resident"][:, :want.shape[1]]
+        diff = np.abs(got - want)
+        scale = float(np.abs(want).max())
+        above = int((diff > REL_TOL * scale).sum())
+        log(f"    {name}: max {diff.max():.3e}, p999 {np.quantile(diff, 0.999):.3e}, {above} of "
+            f"{diff.size} entries above {REL_TOL} * max (max |CPU| {scale:.4g})")
+        bounds = ((np.quantile(diff, 0.999), REL_TOL), (diff.max(), 2e-2)) if c["solar"] \
+            else ((diff.max(), REL_TOL),)
+        for got_, rel in bounds:
+            if not got_ <= rel * scale:
+                raise RuntimeError(f"{name}: card vs CPU {got_} above {rel} * {scale}")
+    log(f"    (the CPU runs took {time.perf_counter() - t0:.1f} s)")
+    return entries, out["runoff_smoothed", "resident"]
+
+
+def line_plan(cut, L, K, rng):
+    """(cell index, mask, psi) of L straight lines on the grid: each from a
+    random point, 0.1-0.8 deg long in a random direction, sampled at 64
+    points and mapped to the cells it crosses (the first K), psi its
+    azimuth folded into [0, pi) as the JAX line_rating folds it."""
+    g = cut.grid_desc
+    Y, X = cut.shape
+    lo, hi = np.array([g.x[0], g.y[0]]), np.array([g.x[-1], g.y[-1]])
+    start = rng.uniform(lo, hi, (L, 2))
+    ang = rng.uniform(0.0, 2 * np.pi, L)
+    end = np.clip(start + rng.uniform(0.1, 0.8, L)[:, None]
+                  * np.stack([np.cos(ang), np.sin(ang)], axis=1), lo, hi)
+    pts = start[:, None] + np.linspace(0.0, 1.0, 64)[None, :, None] * (end - start)[:, None]
+    ix = np.clip(np.rint((pts[..., 0] - g.x[0]) / (g.x[1] - g.x[0])), 0, X - 1).astype(np.int64)
+    iy = np.clip(np.rint((pts[..., 1] - g.y[0]) / (g.y[1] - g.y[0])), 0, Y - 1).astype(np.int64)
+    cells = iy * X + ix
+    idx = np.zeros((L, K), np.int64)
+    mask = np.zeros((L, K), bool)
+    for i in range(L):
+        u = cells[i][np.sort(np.unique(cells[i], return_index=True)[1])][:K]
+        idx[i, :len(u)], mask[i, :len(u)] = u, True
+    psi = np.arctan2(start[:, 0] - end[:, 0], start[:, 1] - end[:, 1])
+    return idx, mask, np.where(psi >= 0, psi, psi + np.pi)
+
+
+def physics_phase(cut, runoff, card):
+    """Phase 12, end: the line-rating and hydro physics on the card
+    against their CPU results; returns their JSON entries."""
+    entries = []
+    L, K, T = LR_SHAPE
+    C = cut.shape[0] * cut.shape[1]
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    idx, mask, psi = line_plan(cut, L, K, rng)
+    fields = cut.fields()
+    flat_idx = torch.as_tensor(idx, device="cuda")
+    gathered = {}
+    for v in ("temperature", "wnd100m", "wnd_azimuth", "influx_direct", "solar_altitude",
+              "solar_azimuth"):
+        gathered[v] = fields[v][:T].reshape(T, C)[:, flat_idx].permute(1, 2, 0).contiguous()
+    gathered["height"] = fields["height"].reshape(C)[flat_idx][..., None].contiguous()
+    dmask = torch.as_tensor(mask, device="cuda")
+    params = (psi, np.full(L, 1e-4), np.full(L, 0.028), np.full(L, 373.0), np.full(L, 0.6),
+              np.full(L, 0.6))
+    torch.cuda.synchronize()
+    log(f"line rating on {card}: L={L} lines (mean {mask.sum(1).mean():.1f} of K={K} cells), "
+        f"T={T} h; set-up (plan from straight segments in numpy, gather on the card) "
+        f"{time.perf_counter() - t0:.2f} s")
+    card_ms = cuda_ms(lambda: line_rating_physics.batched_line_rating(gathered, dmask, *params),
+                      reps=5, warmup=1)
+    got = line_rating_physics.batched_line_rating(gathered, dmask, *params).cpu()
+    cpu_in = {k: v.cpu() for k, v in gathered.items()}
+    t0 = time.perf_counter()
+    want = line_rating_physics.batched_line_rating(cpu_in, torch.as_tensor(mask), *params)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = compare("batched_line_rating, card vs CPU", got, want)
+    n_bytes = 4 * (6 * L * K * T + L * K + L * T) + L * K
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  card {card_ms:.3f} ms (CUDA events, 5 calls), CPU {cpu_ms:.1f} ms; byte bound "
+        f"{bound_ms:.3f} ms ({n_bytes / 1e9:.3f} GB at 3.35 TB/s); {int(torch.isnan(got).sum())} "
+        f"NaN entries")
+    entries.append({"name": "batched_line_rating", "shape": [L, K, T], "ms": card_ms,
+                    "cpu_ms": cpu_ms, "bound_ms": bound_ms, "max_abs_err": err})
+    del gathered, cpu_in
+
+    n_plants, per_plant, max_shift = HYDRO_SHAPE
+    B, T = runoff.shape
+    P = n_plants * per_plant
+    pair_plant = np.repeat(np.arange(n_plants), per_plant)
+    pair_basin = rng.integers(0, B, P)
+    pair_shift = rng.integers(0, max_shift + 1, P)
+    r_cpu = torch.as_tensor(runoff, dtype=torch.float32)
+    r_card = r_cpu.cuda()
+    pairs = [torch.as_tensor(a, device="cuda") for a in (pair_plant, pair_basin, pair_shift)]
+    card_ms = cuda_ms(lambda: hydro_physics.shift_and_aggregate(r_card, *pairs, n_plants),
+                      reps=20)
+    got = hydro_physics.shift_and_aggregate(r_card, *pairs, n_plants).cpu()
+    t0 = time.perf_counter()
+    want = hydro_physics.shift_and_aggregate(r_cpu, pair_plant, pair_basin, pair_shift, n_plants)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = compare("shift_and_aggregate, card vs CPU", got, want)
+    n_bytes = 4 * (B * T + n_plants * T) + 3 * 8 * P
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  shift_and_aggregate: {n_plants} plants, {P} (plant, basin) pairs of {B} basins, "
+        f"shifts 0-{max_shift} h, T={T}: card {card_ms:.4f} ms (CUDA events, 20 calls), CPU "
+        f"{cpu_ms:.1f} ms; byte bound {bound_ms:.4f} ms ({n_bytes / 1e6:.2f} MB: the runoff, "
+        f"the pairs and the output once)")
+    entries.append({"name": "shift_and_aggregate", "shape": [n_plants, P, B, T], "ms": card_ms,
+                    "cpu_ms": cpu_ms, "bound_ms": bound_ms, "max_abs_err": err})
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -802,6 +1066,12 @@ def main():
     cut, matrix = continental_inputs()
     cf = continental_path(cut, matrix, card)
     bsr_entry = bsr_phase(matrix, cf, card, ptxas)
+    del cf
+    t0 = time.perf_counter()
+    converters, runoff = converters_phase(cut, matrix, card)
+    converters += physics_phase(cut, runoff, card)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"converters": converters}), flush=True)
 
     kernels = [{
         "name": "wind_pv_bus_megakernel",

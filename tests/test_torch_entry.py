@@ -140,6 +140,11 @@ for kw in (dict(), dict(time_chunk=10, stream_pack="int16")):
     r = c.wind("Vestas_V112_3MW", matrix=m, aggregate_time=None, **kw)
     q = c.pv(panel="CSi", orientation="latitude_optimal", matrix=m, aggregate_time=None, **kw)
     assert r.values.shape == q.values.shape == (3, 24) and np.isfinite(q.values).all()
+h = c.heat_demand(matrix=m, aggregate_time=None, time_chunk=10, stream_pack="int16")
+k = c.csp("SAM_solar_tower", matrix=m, aggregate_time=None)
+i = c.irradiation(orientation="latitude_optimal", tracking="tilted_horizontal",
+                  trigon_model="hay_davies", matrix=m, aggregate_time=None)
+assert h.values.shape == (3, 1) and k.values.shape == i.values.shape == (3, 24)
 f = torch.rand(24, 575)
 assert bsr_spmm.bsr_spmm_kernel(bsr_spmm.to_bsr(m), f).shape == (24, 3)
 assert bsr_spmm.bsr_spmm_kernel.launches == 0
@@ -151,8 +156,10 @@ print("PORT RUNS ALONE")
 
 def test_port_runs_without_jax_and_pandas():
     """Every module of the port imports, and the headline step, the
-    Cutout's wind and PV (resident and streamed packed) and the BSR entry
-    run, with jax, atlite_tpu, pandas and yaml refused."""
+    Cutout's wind and PV (resident and streamed packed), heat demand
+    (streamed packed), CSP from its YAML file, tracked Hay-Davies
+    irradiation and the BSR entry run, with jax, atlite_tpu, pandas and
+    yaml refused."""
     out = subprocess.run(
         [sys.executable, "-c", BLOCKER.format(banned=BANNED)],
         cwd=ROOT, capture_output=True, text=True, timeout=600)

@@ -243,9 +243,23 @@ def test_surface_orientation(with_pairs):
 
 
 def test_surface_orientation_tracking_not_ported():
-    sp = {"altitude": tt(np.zeros((1, 1, 1))), "azimuth": tt(np.zeros((1, 1, 1)))}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tori.surface_orientation(sp, tt([45.0]), {"kind": "latitude_optimal"}, "dual")
+    """Named when tracking raised; every tracking mode is ported now and
+    matches the JAX package on random sky angles (NaN masks identical),
+    and an unknown mode still raises."""
+    fields = sky(seed=3)
+    sp = {"altitude": fields["solar_altitude"], "azimuth": fields["solar_azimuth"]}
+    lat = LATS[:5]
+    spec = {"kind": "constant", "slope": 30.0, "azimuth": 180.0}
+    for tracking in ("horizontal", "tilted_horizontal", "vertical", "dual"):
+        want = jax_f32(jori.surface_orientation, sp, lat, spec, tracking)
+        got = tori.surface_orientation({k: tt(v) for k, v in sp.items()}, tt(lat), spec,
+                                       tracking)
+        for k in ("cosincidence", "slope", "azimuth"):
+            g = torch.broadcast_to(torch.as_tensor(got[k]), fields["solar_altitude"].shape)
+            w = np.broadcast_to(want[k], fields["solar_altitude"].shape)
+            np.testing.assert_array_equal(torch.isnan(g).numpy(), np.isnan(w), err_msg=k)
+            close(torch.nan_to_num(g), np.nan_to_num(w), atol=2e-6)
+        assert got["tracking"] == tracking
     with pytest.raises(AssertionError):
         tori.surface_orientation(sp, tt([45.0]), {"kind": "latitude_optimal"}, "spin")
 
@@ -291,11 +305,25 @@ def test_tilted_irradiation(branch, albedo):
 
 
 def test_tilted_irradiation_hay_davies_not_ported():
-    f = {k: tt(v) for k, v in sky().items()}
-    sp = {"altitude": f["solar_altitude"], "azimuth": f["solar_azimuth"]}
-    surf = tori.surface_orientation(sp, tt(LATS[:5]), {"kind": "latitude_optimal"})
-    with pytest.raises(NotImplementedError, match="Hay-Davies"):
-        tirr.tilted_irradiation(f, sp, surf, trigon_model="hay_davies")
+    """Named when Hay-Davies raised; it is ported now and matches the JAX
+    package for every irradiation kind."""
+    fields = sky()
+    sp = {"altitude": fields["solar_altitude"], "azimuth": fields["solar_azimuth"]}
+    lat = LATS[:5]
+    spec = {"kind": "latitude_optimal"}
+    f = {k: tt(v) for k, v in fields.items()}
+    tsp = {k: tt(v) for k, v in sp.items()}
+    surf = tori.surface_orientation(tsp, tt(lat), spec)
+    for kind in ("total", "direct", "diffuse", "ground"):
+        def jax_chain(fields, sp):
+            surf = jori.surface_orientation(sp, lat, spec, None)
+            return jirr.tilted_irradiation(fields, sp, surf, trigon_model="hay_davies",
+                                           clearsky_model=None, irradiation=kind)
+
+        want = jax_f32(jax_chain, fields, sp)
+        got = tirr.tilted_irradiation(f, tsp, surf, trigon_model="hay_davies",
+                                      clearsky_model=None, irradiation=kind)
+        close(got, want, rtol=1e-5, atol=1e-4)
 
 
 # ---- pv.py
