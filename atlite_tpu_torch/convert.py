@@ -1,12 +1,10 @@
 """Converters: weather fields -> energy time series (counterpart of
 ``atlite_tpu/convert.py``): wind, PV, irradiation, solar thermal, CSP, the
-temperature family, heat-pump COP, degree-day demand and runoff, plus the
-single-line rating of the IEEE-738 case.  ``hydro`` and ``line_rating``
-need basin and line geometry and wait for the GIS slice; their physics is
-in ``physics/hydro.py`` and ``physics/line_rating.py``.
+temperature family, heat-pump COP, degree-day demand, runoff, the basin-
+routed hydro inflow of plants and the dynamic rating of lines.
 
 ``convert_and_aggregate`` is the gateway: it composes the spatial
-aggregation (``matrix``, ``layout``), per-unit normalisation and the
+aggregation (``matrix``, ``shapes``, ``layout``), per-unit normalisation and the
 temporal aggregation around a converter, resident or streamed over time
 chunks.  The streamer (``_chunked_convert``) packs chunk k+1 on a worker
 thread into one of two pinned host buffers and copies it to the card on a
@@ -19,7 +17,9 @@ profiler reads per chunk and which costs next to nothing without one.
 
 from __future__ import annotations
 
+import logging
 import re
+import time
 import warnings
 from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
@@ -34,7 +34,10 @@ from atlite_tpu_torch.aggregate import aggregate_matrix, spdiag, spmm_closure
 from atlite_tpu_torch.core import timeutil
 from atlite_tpu_torch.dataarray import DataArray
 from atlite_tpu_torch.entry import resolve_device
+from atlite_tpu_torch.gis.geometry import parse_geometry
+from atlite_tpu_torch.gis.matrix import _is_series
 from atlite_tpu_torch.physics import csp as csp_physics
+from atlite_tpu_torch.physics import hydro as hydro_physics
 from atlite_tpu_torch.physics import irradiation as irradiation_physics
 from atlite_tpu_torch.physics import line_rating as line_rating_physics
 from atlite_tpu_torch.physics import orientation, solar, thermal
@@ -44,10 +47,23 @@ from atlite_tpu_torch.resource import (
     get_cspinstallationconfig,
     get_solarpanelconfig,
     get_windturbineconfig,
+    windturbine_smooth,
 )
 
-_GIS_SLICE = ("needs {what} geometry and the GIS slice, not ported yet (ROADMAP queue 1, "
-              "item 8); its physics is ported: {physics}")
+logger = logging.getLogger(__name__)
+
+
+def maybe_progressbar(result, show_progress=False, **kwargs):
+    """Bring a result to the host; with ``show_progress``, log the time
+    that took (atlite shows a dask progress bar here)."""
+    del kwargs
+    if not show_progress:
+        return result.load() if hasattr(result, "load") else result
+    t0 = time.perf_counter()
+    out = result.load() if hasattr(result, "load") else result
+    logger.info("computed %s in %.2fs", getattr(result, "name", None) or "result",
+                time.perf_counter() - t0)
+    return out
 
 
 def _tyx(cutout, values, name=None, attrs=None):
@@ -68,15 +84,24 @@ def _aggregate_time_da(da, method):
 # gateway
 # ---------------------------------------------------------------------------
 def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=None,
-                          shapes=None, per_unit=False, return_capacity=False,
-                          aggregate_time="legacy", **convert_kwds):
+                          shapes=None, shapes_crs=4326, per_unit=False, return_capacity=False,
+                          aggregate_time="legacy", capacity_factor=False,
+                          capacity_factor_timeseries=False, show_progress=False,
+                          dask_kwargs=None, **convert_kwds):
     """Convert, then aggregate in space and time.
 
-    Returns a DataArray (bus, time) with ``matrix`` or ``layout``, else
-    (time, y, x); values on the host.  ``time_chunk`` streams the
-    conversion over chunks of that many hours, and ``stream_pack="int16"``
-    packs each chunk's upload (see ``Cutout.pack_params``).
+    Returns a DataArray (bus, time) with ``matrix``, ``shapes`` or
+    ``layout``, else (time, y, x); values on the host.  ``shapes`` (in
+    ``shapes_crs``) aggregate by their indicator matrix, labelled by their
+    own ``.index`` when they have one; a ``layout`` weights the cells of
+    either.  ``capacity_factor`` and ``capacity_factor_timeseries`` are
+    the deprecated spellings of ``aggregate_time="mean"`` and ``None``;
+    ``dask_kwargs`` is accepted and unused (nothing runs on dask).
+    ``time_chunk`` streams the conversion over chunks of that many hours,
+    and ``stream_pack="int16"`` packs each chunk's upload (see
+    ``Cutout.pack_params``).
     """
+    del dask_kwargs
     if aggregate_time not in ("sum", "mean", "legacy", None):
         raise ValueError(f"aggregate_time must be 'sum', 'mean', 'legacy', or None, "
                          f"got {aggregate_time!r}")
@@ -84,9 +109,18 @@ def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=
         warnings.warn("aggregate_time='legacy' is deprecated and will be removed in a "
                       "future release. Pass 'sum', 'mean', or None explicitly.",
                       FutureWarning, stacklevel=2)
-    if shapes is not None:
-        raise NotImplementedError("shapes= needs the GIS slice, not ported yet (ROADMAP "
-                                  "queue 1, item 8); pass an indicator matrix as matrix=")
+    if capacity_factor or capacity_factor_timeseries:
+        if aggregate_time != "legacy":
+            raise ValueError("Cannot use 'aggregate_time' together with deprecated "
+                             "'capacity_factor' or 'capacity_factor_timeseries'.")
+        if capacity_factor:
+            warnings.warn("capacity_factor is deprecated. Use aggregate_time='mean' instead.",
+                          FutureWarning, stacklevel=2)
+            aggregate_time = "mean"
+        if capacity_factor_timeseries:
+            warnings.warn("capacity_factor_timeseries is deprecated. "
+                          "Use aggregate_time=None instead.", FutureWarning, stacklevel=2)
+            aggregate_time = None
 
     time_chunk = convert_kwds.pop("time_chunk", None)
     stream_pack = convert_kwds.pop("stream_pack", None)
@@ -101,7 +135,7 @@ def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=
         raise ValueError("stream_pack requires streamed conversion: pass a time_chunk= "
                          "smaller than the time axis")
 
-    if matrix is None and layout is None:
+    if matrix is None and layout is None and shapes is None:
         if per_unit or return_capacity:
             raise ValueError("One of `matrix`, `shapes` and `layout` must be "
                              "given for `per_unit` or `return_capacity`")
@@ -111,11 +145,13 @@ def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=
         else:
             da = convert_func(cutout, **convert_kwds)
         agg = "sum" if aggregate_time == "legacy" else aggregate_time
-        return _aggregate_time_da(da, agg).load()
+        return maybe_progressbar(_aggregate_time_da(da, agg), show_progress)
 
     # the matrix is composed before converting: the streamer aggregates
     # inside each chunk
     if matrix is not None:
+        if shapes is not None:
+            raise ValueError("Passing matrix and shapes is ambiguous. Pass only one of them.")
         if isinstance(matrix, DataArray):
             if index is None and matrix.dims[0] in matrix.coords:
                 index = matrix.coords[matrix.dims[0]]
@@ -127,6 +163,10 @@ def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=
             raise ValueError(f"Matrix spatial dimension ({np.shape(matrix)[1]} columns) "
                              f"not aligned with the cutout grid ({ncells} cells)")
         matrix = sp.csr_matrix(matrix)
+    if shapes is not None:
+        if _is_series(shapes) and index is None:
+            index = shapes.index
+        matrix = sp.csr_matrix(cutout.indicatormatrix(shapes, shapes_crs))
     if layout is not None:
         lv = _align_layout(layout, cutout)
         matrix = sp.csr_matrix(lv[None, :]) if matrix is None else matrix @ spdiag(lv)
@@ -161,7 +201,7 @@ def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=
 
     if aggregate_time != "legacy":
         results = _aggregate_time_da(results, aggregate_time)
-    results = results.load()
+    results = maybe_progressbar(results, show_progress)
     if return_capacity:
         return results, capacity
     return results
@@ -636,11 +676,13 @@ def convert_wind(cutout, turbine, interpolation_method="logarithmic"):
 
 def wind(cutout, turbine, smooth=False, add_cutout_windspeed=False,
          interpolation_method="logarithmic", **params):
-    """Wind generation: hub-height extrapolation + power curve."""
-    if smooth:
-        raise NotImplementedError("power-curve smoothing is not ported yet "
-                                  "(ROADMAP queue 1, item 10: resource.py)")
+    """Wind generation: hub-height extrapolation + power curve.  ``turbine``
+    is a registry name, a Path to a turbine file or a config dict;
+    ``smooth`` (True or a dict of ``windturbine_smooth``'s parameters)
+    convolves its power curve with a Gaussian first."""
     turbine = get_windturbineconfig(turbine, add_cutout_windspeed=add_cutout_windspeed)
+    if smooth:
+        turbine = windturbine_smooth(turbine, params=smooth)
     return cutout.convert_and_aggregate(
         convert_func=convert_wind, turbine=turbine,
         interpolation_method=interpolation_method, **params)
@@ -756,9 +798,24 @@ def runoff(cutout, smooth=None, lower_threshold_quantile=None, normalize_using_y
 
 def hydro(cutout, plants, hydrobasins, flowspeed=1, weight_with_height=False,
           show_progress=False, **kwargs):
-    """Per-plant inflow from basin-aggregated runoff: not ported yet."""
-    raise NotImplementedError("hydro " + _GIS_SLICE.format(
-        what="basin", physics="physics/hydro.py shift_and_aggregate, travel_hours"))
+    """Per-plant inflow [m^3/h] as a (plant, time) DataArray: each basin's
+    runoff averaged over its cells (the row-normalised indicator matrix of
+    the basins) times its area, then rolled by the travel time to each
+    plant downstream and summed.  ``plants``: columns ``lon``, ``lat``;
+    ``hydrobasins``: ``HYBAS_ID``, ``NEXT_DOWN``, ``DIST_MAIN`` [km] and
+    ``geometry``; each a DataFrame or a dict of columns.  Other keywords go
+    to ``runoff``."""
+    basins = hydro_physics.determine_basins(plants, hydrobasins, show_progress)
+    matrix = sp.csr_matrix(cutout.indicatormatrix(basins.shapes))
+    row_sums = np.asarray(matrix.sum(axis=1)).ravel()
+    inv = np.where(row_sums != 0, 1.0 / np.where(row_sums != 0, row_sums, 1), 0.0)
+    runoff_da = cutout.runoff(matrix=spdiag(inv) @ matrix, index=np.asarray(list(basins.shapes)),
+                              weight_with_height=weight_with_height, **kwargs)
+    # m of water an hour -> m^3 an hour, by the basin's equal-area extent
+    areas = hydro_physics.basin_areas_m2(basins)
+    runoff_da = runoff_da.copy(np.asarray(runoff_da.values) * areas[:, None])
+    return hydro_physics.inflow_for_plants(basins, runoff_da, flowspeed, device=cutout.device,
+                                           dtype=cutout.torch_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -784,11 +841,86 @@ def convert_line_rating(ds, psi, R, D=0.028, Ts=373, epsilon=0.6, alpha=0.6, per
     return line_rating_physics.ampacity(fields, psi, R, D, Ts, epsilon, alpha)
 
 
+_LINE_PARAMS = {"D": 0.028, "Ts": 373, "epsilon": 0.6, "alpha": 0.6}
+_LINE_FIELDS = ("temperature", "wnd100m", "height", "wnd_azimuth", "influx_direct",
+                "solar_altitude", "solar_azimuth")
+
+
 def line_rating(cutout, shapes, line_resistance, show_progress=False, dask_kwargs=None,
-                **params):
-    """Dynamic line rating of line geometries: not ported yet."""
-    raise NotImplementedError("line_rating " + _GIS_SLICE.format(
-        what="line", physics="physics/line_rating.py batched_line_rating"))
+                _chunk_hours=None, **params):
+    """Dynamic line rating [A] of line geometries as a (name, time)
+    DataArray: the IEEE-738 ampacity of every cell a line touches (its
+    intersection matrix), the line's the least of them.
+
+    ``shapes``: LineStrings (a Series-like, whose ``.index`` names the
+    lines, or a list); ``line_resistance`` [Ohm/m] and the keywords ``D``,
+    ``Ts``, ``epsilon`` and ``alpha`` are numbers or one value a line.
+    The line's azimuth is that of its end points, folded into [0, pi).
+    All lines run at once on a padded (L, K) plan of their cells,
+    gathered from the cutout's fields on its device, in time chunks of
+    ``_chunk_hours`` (default: about 48e6 cell-hours a chunk).
+    """
+    del show_progress, dask_kwargs
+    geoms = list(shapes.values) if _is_series(shapes) else list(shapes)
+    labels = shapes.index if _is_series(shapes) else np.arange(len(geoms))
+    I = sp.csr_matrix(cutout.intersectionmatrix(geoms))
+
+    def azimuth(shape):
+        coords = np.asarray(parse_geometry(shape).coords)
+        start, end = coords[0], coords[-1]
+        return np.arctan2(start[0] - end[0], start[1] - end[1])
+
+    L = len(geoms)
+    psi = np.array([azimuth(g) for g in geoms], dtype=float).reshape(L)
+    psi = np.where(psi >= 0, psi, psi + np.pi)
+    unknown = sorted(set(params) - set(_LINE_PARAMS))
+    if unknown:
+        # a misspelled parameter (Epsilon=) must not pass for the default
+        raise ValueError(f"unexpected line-rating parameters {unknown}; "
+                         f"expected {list(_LINE_PARAMS)}")
+    cols = {"psi": psi, "R": line_resistance, **{k: params.get(k, v)
+                                                 for k, v in _LINE_PARAMS.items()}}
+    cols = {k: np.broadcast_to(np.asarray(v, dtype=float), (L,)).copy() for k, v in cols.items()}
+    if any(np.isnan(v).any() for v in cols.values()):
+        raise ValueError("Nan values encountered.")
+
+    # the padded (L, K) plan from the CSR structure: .indices runs row by
+    # row, so the row-major mask positions line up with it
+    counts = np.diff(I.indptr)
+    K = max(1, int(counts.max()) if L else 1)
+    mask = np.arange(K)[None, :] < counts[:, None]
+    cell_idx = np.zeros((L, K), dtype=np.int64)
+    cell_idx[mask] = I.indices
+
+    T = len(cutout.grid_desc.time)
+    fields = cutout.fields()
+    if "solar_altitude" not in fields or "solar_azimuth" not in fields:
+        eph, lon, lat = _solar_inputs(cutout, {})  # no stored angles: the ephemeris
+        sp_ = solar.solar_position(eph["declination"], eph["hour_angle0"], lon, lat)
+        fields = {**fields, "solar_altitude": sp_["altitude"], "solar_azimuth": sp_["azimuth"]}
+    dev = fields["temperature"].device
+    flat_idx = torch.as_tensor(cell_idx.ravel(), device=dev)
+    dmask = torch.as_tensor(mask, device=dev)
+    static = {v: fields[v].reshape(-1).index_select(0, flat_idx).reshape(L, K, 1)
+              for v in _LINE_FIELDS if fields[v].dim() == 2}
+    chunk = _chunk_hours or max(1, min(T, int(48e6 // max(1, L * K))))
+    pieces = []
+    for t0 in range(0, T, chunk):
+        t1 = min(T, t0 + chunk)
+        gathered = dict(static)
+        for v in _LINE_FIELDS:
+            if v not in static:
+                # (Tc, C) columns of the plan's cells -> (L, K, Tc); every
+                # hour is rated on its own, so a short last chunk needs no
+                # padding
+                g = fields[v][t0:t1].reshape(t1 - t0, -1).index_select(1, flat_idx)
+                gathered[v] = g.reshape(t1 - t0, L, K).permute(1, 2, 0)
+        pieces.append(line_rating_physics.batched_line_rating(
+            gathered, dmask, *(cols[k] for k in ("psi", "R", "D", "Ts", "epsilon", "alpha"))))
+    out = (torch.cat(pieces, dim=1).cpu().numpy() if pieces
+           else np.zeros((L, T), dtype=cutout.dtype))
+    return DataArray(out, coords={"name": labels, "time": cutout.grid_desc.time_index},
+                     dims=("name", "time"), attrs={"units": "A"})
 
 
 # Streaming contract: a converter marked _time_elementwise treats every

@@ -7,10 +7,11 @@ slice made by ``isel_time`` (the streamer's chunk) stages all its time
 fields in one batched upload, raw or packed as CF int16 codes
 (``pack_params``), and reuses its parent's staged static fields.
 
-Every converter of the JAX Cutout is bound; ``hydro`` and ``line_rating``
-raise until the GIS slice gives them basin and line geometry.  The
-on-disk ``.atc`` store, NetCDF files, ``sel``/``merge`` and the GIS
-methods wait for later slices (ROADMAP queue 1, items 8 and 10).
+Every converter of the JAX Cutout is bound, and the GIS members that
+build aggregation matrices and layouts from shapes (``indicatormatrix``,
+``intersectionmatrix``, ``area`` and the three layouts).  The on-disk
+``.atc`` store, NetCDF files, ``sel``/``merge``, ``grid`` and the
+availability matrix wait for later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -23,8 +24,11 @@ import torch
 
 from atlite_tpu_torch import convert
 from atlite_tpu_torch.core.grid import Grid, coordinate_range
+from atlite_tpu_torch.dataarray import DataArray
 from atlite_tpu_torch.datasets import modules as datamodules
 from atlite_tpu_torch.entry import resolve_device
+from atlite_tpu_torch.gis.crs import transform_points
+from atlite_tpu_torch.gis.matrix import compute_indicatormatrix, compute_intersectionmatrix
 
 _TORCH_DTYPE = {np.dtype("float32"): torch.float32, np.dtype("float64"): torch.float64}
 NAN_CODE = 65535  # the packed NaN sentinel; codes of values run 0..65534
@@ -105,6 +109,11 @@ class Cutout:
     @property
     def module(self):
         return self.attrs.get("module")
+
+    @property
+    def crs(self):
+        """The CRS of the grid: its dataset module's (4326 for synthetic)."""
+        return datamodules[np.atleast_1d(self.module)[0]].crs
 
     @property
     def shape(self):
@@ -311,6 +320,61 @@ class Cutout:
                                   if not _time_dims(self.var_attrs, n)}
         return self._static_cache
 
+    # ------------------------------------------------------------------ gis
+    def indicatormatrix(self, shapes, shapes_crs=4326):
+        """(shapes, cells) sparse matrix of the share of each cell that
+        each shape covers (``gis.compute_indicatormatrix``)."""
+        return compute_indicatormatrix(self.grid_desc, shapes, self.crs, shapes_crs)
+
+    def intersectionmatrix(self, shapes, shapes_crs=4326):
+        """(shapes, cells) sparse 0/1 matrix of the cells each shape
+        touches (``gis.compute_intersectionmatrix``)."""
+        return compute_intersectionmatrix(self.grid_desc, shapes, self.crs, shapes_crs)
+
+    def area(self, crs=None):
+        """Cell areas as a (y, x) DataArray, in the units of ``crs``
+        (default the cutout's): each cell's four corners transformed, then
+        the shoelace area of that quadrilateral."""
+        crs = self.crs if crs is None else crs
+        g = self.grid_desc
+        xe = np.concatenate([g.x - g.dx / 2, [g.x[-1] + g.dx / 2]])
+        ye = np.concatenate([g.y - g.dy / 2, [g.y[-1] + g.dy / 2]])
+        X, Y = np.meshgrid(xe, ye)
+        tx, ty = transform_points(X.ravel(), Y.ravel(), self.crs, crs)
+        tx, ty = tx.reshape(X.shape), ty.reshape(Y.shape)
+        x00, x10, x11, x01 = tx[:-1, :-1], tx[:-1, 1:], tx[1:, 1:], tx[1:, :-1]
+        y00, y10, y11, y01 = ty[:-1, :-1], ty[:-1, 1:], ty[1:, 1:], ty[1:, :-1]
+        area = 0.5 * np.abs(x00 * y10 - x10 * y00 + x10 * y11 - x11 * y10
+                            + x11 * y01 - x01 * y11 + x01 * y00 - x00 * y01)
+        return DataArray(area, coords={"y": g.y, "x": g.x}, dims=("y", "x"))
+
+    def uniform_layout(self):
+        """A (y, x) layout of one unit of capacity in every cell."""
+        g = self.grid_desc
+        return DataArray(np.ones(self.shape), coords={"y": g.y, "x": g.x}, dims=("y", "x"))
+
+    def uniform_density_layout(self, capacity_density, crs=None):
+        """A (y, x) layout of ``capacity_density`` per unit of area (of
+        ``crs``) in every cell."""
+        area = self.area(crs)
+        return area.copy(area.values * capacity_density)
+
+    def layout_from_capacity_list(self, data, col="Capacity"):
+        """A (y, x) layout from a table of plants: columns ``x``, ``y`` and
+        ``col`` (a DataFrame or a dict of equal-length columns), each plant's
+        capacity added to the cell whose centre lies nearest.  A point
+        exactly on the first coordinate stays in the first cell (the
+        reference wraps it to the last)."""
+        g = self.grid_desc
+        px, py = (np.asarray(data[c], dtype=float) for c in ("x", "y"))
+        ix = np.clip(np.searchsorted(g.x, px, side="left"), 0, len(g.x) - 1)
+        iy = np.clip(np.searchsorted(g.y, py, side="left"), 0, len(g.y) - 1)
+        ix = ix - ((ix > 0) & (px - g.x[ix - 1] < g.x[ix] - px))
+        iy = iy - ((iy > 0) & (py - g.y[iy - 1] < g.y[iy] - py))
+        layout = np.zeros(self.shape)
+        np.add.at(layout, (iy, ix), np.asarray(data[col], dtype=float))
+        return DataArray(layout, coords={"y": g.y, "x": g.x}, dims=("y", "x"))
+
     # ------------------------------------------------ conversion bindings
     convert_and_aggregate = convert.convert_and_aggregate
     temperature = convert.temperature
@@ -325,8 +389,8 @@ class Cutout:
     pv = convert.pv
     csp = convert.csp
     runoff = convert.runoff
-    hydro = convert.hydro  # raises until the GIS slice
-    line_rating = convert.line_rating  # raises until the GIS slice
+    hydro = convert.hydro
+    line_rating = convert.line_rating
 
 
 def _derive_solar_trig(cache):

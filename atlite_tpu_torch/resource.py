@@ -1,17 +1,18 @@
 """Turbine, solar-panel and CSP-installation configurations (counterpart
 of ``atlite_tpu/resource.py``).
 
-The panels and CSP installations are read from copies of the JAX
-package's YAML files under ``resources/`` (data: contributors to atlite,
+Turbines, panels and CSP installations are read from copies of the JAX
+package's files under ``resources/`` (data: contributors to atlite,
 CC-BY-4.0; each file keeps its attribution header) by ``load_yaml``, a
-reader of the flat subset they use, so the port needs no PyYAML.  The one
-turbine the port holds so far, ``Vestas_V112_3MW``, is a Python literal;
-other turbine names raise ``KeyError``.
+reader of the flat subset they use, so the port needs no PyYAML.  The
+registries ``windturbines``, ``solarpanels`` and ``cspinstallations`` map
+each ``*.yaml`` stem to its file; a file outside them (such as the
+extensionless ``eno_126_*`` turbines) is read by its ``Path``.  The OEDB
+turbine search (``oedb:`` names) downloads, and is not ported.
 """
 
 from __future__ import annotations
 
-import copy
 import logging
 import re
 from pathlib import Path
@@ -21,27 +22,28 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 RESOURCE_DIRECTORY = Path(__file__).parent / "resources"
+WINDTURBINE_DIRECTORY = RESOURCE_DIRECTORY / "windturbine"
 SOLARPANEL_DIRECTORY = RESOURCE_DIRECTORY / "solarpanel"
 CSPINSTALLATION_DIRECTORY = RESOURCE_DIRECTORY / "cspinstallation"
 
-_NOT_PORTED = ("is not among the configurations the port holds so far; the "
-               "others wait for a later slice (ROADMAP queue 1, item 10)")
 
-WINDTURBINES = {
-    "Vestas_V112_3MW": {
-        "name": "V112 3MW",
-        "manufacturer": "Vestas",
-        "source": "http://nozebra.ipapercms.dk/Vestas/Communication/Productbrochure/"
-                  "V11230MW/V11230MWOffshoreUK/",
-        "HUB_HEIGHT": 80.0,
-        "V": [0, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 25, 25],
-        "POW": [0, 0, 0.005, 0.15, 0.3, 0.525, 0.905, 1.375, 1.95, 2.58, 2.96,
-                3.05, 3.06, 3.06, 0],
-    },
-}
+class arrowdict(dict):
+    """A dict whose keys read as attributes too."""
 
-solarpanels = {p.stem: p for p in sorted(SOLARPANEL_DIRECTORY.glob("*.yaml"))}
-cspinstallations = {p.stem: p for p in sorted(CSPINSTALLATION_DIRECTORY.glob("*.yaml"))}
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError as exc:
+            raise AttributeError(key) from exc
+
+    def __dir__(self):
+        return list(super().__dir__()) + list(self)
+
+
+windturbines = arrowdict({p.stem: p for p in sorted(WINDTURBINE_DIRECTORY.glob("*.yaml"))})
+solarpanels = arrowdict({p.stem: p for p in sorted(SOLARPANEL_DIRECTORY.glob("*.yaml"))})
+cspinstallations = arrowdict(
+    {p.stem: p for p in sorted(CSPINSTALLATION_DIRECTORY.glob("*.yaml"))})
 
 # ---------------------------------------------------------------------------
 # YAML subset: comments, ``key: scalar``, nested block mappings, one-line
@@ -151,22 +153,64 @@ def _resolve(name, registry, kind):
 
 
 def get_windturbineconfig(turbine, add_cutout_windspeed=True):
-    """A validated turbine config {V, POW, hub_height, P} from a name or a
-    dict."""
-    if isinstance(turbine, str):
-        key = turbine.replace(".yaml", "")
-        if key not in WINDTURBINES:
-            raise KeyError(f"turbine {turbine!r} {_NOT_PORTED}")
-        raw = copy.deepcopy(WINDTURBINES[key])
+    """A validated turbine config {V, POW, hub_height, P} from a registry
+    name, a ``Path`` to a turbine file, or a dict."""
+    if not isinstance(turbine, (str, Path, dict)):
+        raise KeyError(f"`turbine` must be a str, pathlib.Path or dict, but is {type(turbine)}.")
+    if isinstance(turbine, str) and turbine.startswith("oedb:"):
+        raise NotImplementedError(
+            f"turbine {turbine!r}: the OEDB turbine search downloads its data and is not "
+            "ported; pass a registry name, a Path to a turbine file or a dict")
+    if isinstance(turbine, (str, Path)):
+        raw = load_yaml(_resolve(turbine, windturbines, "turbine"))
         conf = dict(V=np.array(raw["V"], dtype=float),
                     POW=np.array(raw["POW"], dtype=float),
                     hub_height=raw["HUB_HEIGHT"],
                     P=float(np.max(raw["POW"])))
-    elif isinstance(turbine, dict):
-        conf = turbine
     else:
-        raise KeyError(f"`turbine` must be a str or dict, but is {type(turbine)}.")
+        conf = turbine
     return _validate_turbine_config_dict(conf, add_cutout_windspeed)
+
+
+def windturbine_rated_capacity_per_unit(turbine):
+    """Rated power of a turbine [MW]: the largest value of its curve."""
+    if isinstance(turbine, (str, Path)):
+        turbine = get_windturbineconfig(turbine)
+    return turbine["P"]
+
+
+def windturbine_smooth(turbine, params=None):
+    """The power curve convolved with a Gaussian of the wind speed's
+    spread over a cell (Andresen et al. 2015): on a 0.1 m/s grid over
+    -50..50 m/s, kernel N(Delta_v, sigma) scaled by 0.1, then sampled at
+    72 speeds over 0..35 m/s and scaled by ``eta``.  ``params`` (True or
+    a dict) may set ``eta`` (0.95), ``Delta_v`` (1.27) and ``sigma``
+    (2.29).  Warns when the smoothed turbine yields power at 0 m/s."""
+    if params is None or params is True:
+        params = {}
+    eta = params.get("eta", 0.95)
+    Delta_v = params.get("Delta_v", 1.27)
+    sigma = params.get("sigma", 2.29)
+
+    def kernel(v0):
+        return (1.0 / np.sqrt(2 * np.pi * sigma * sigma)
+                * np.exp(-(v0 - Delta_v) ** 2 / (2 * sigma * sigma)))
+
+    velocities_reg = np.linspace(-50.0, 50.0, 1001)
+    power_reg = np.interp(velocities_reg, turbine["V"], turbine["POW"])
+    # direct convolution on the 0.1 m/s grid
+    convolution = 0.1 * np.convolve(power_reg, kernel(velocities_reg), mode="same")
+    velocities_new = np.linspace(0.0, 35.0, 72)
+    power_new = eta * np.interp(velocities_new, velocities_reg, convolution)
+
+    turbine = dict(turbine)
+    turbine["V"], turbine["POW"] = velocities_new, power_new
+    turbine["P"] = np.max(power_new)
+    if np.any(turbine["POW"][turbine["V"] == 0.0] > 1e-2):
+        logger.warning("Oversmoothing detected with parameters eta=%f, Delta_v=%f, "
+                       "sigma=%f. Turbine generates energy at 0 m/s wind speeds.",
+                       eta, Delta_v, sigma)
+    return turbine
 
 
 def get_solarpanelconfig(panel):

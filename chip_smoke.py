@@ -72,7 +72,20 @@ Phases, in order; any failure exits non-zero:
      within phase 10's bounds, the first 48 h (two days) against the
      plain path on the CPU; then ``batched_line_rating`` (2048 lines of
      16 cells, 720 h) and ``shift_and_aggregate`` (500 plants, 20,000
-     basin pairs, 1440 h) timed on the card against their CPU results.
+     basin pairs, 1440 h) timed on the card against their CPU results;
+ 13. geometry on the continental cut: the 2048 regions of
+     bench_continental.py as boxes, their indicator matrix by the C++
+     engine (asserted built and loaded) and, on the first 256 regions, by
+     numpy (the same matrix), with its entries and banded route;
+     ``cutout.wind(..., shapes=regions, per_unit=True)`` and
+     ``cutout.pv(..., layout=uniform_density_layout(...), shapes=regions)``
+     resident under torch.profiler (wall s, busy ms, idle share), bit for
+     bit against the same calls with the matrix, the first 48 h against
+     the CPU; ``cutout.line_rating`` on 2048 five-point lines (intersection
+     matrix host s, wall s, busy ms, idle share; first 48 h against a CPU
+     cutout); ``cutout.hydro`` on a basin forest over the region boxes
+     with 500 plants, both given as dicts of columns (wall s; against the
+     CPU over the whole 1440 h); a second registry turbine, smoothed.
 Then one JSON line of the converters, one of kernels and, last, the
 result line.
 """
@@ -89,7 +102,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from atlite_tpu_torch import Cutout, aggregate, build_inputs, entry, from_jax_inputs
+from atlite_tpu_torch import Cutout, aggregate, build_inputs, entry, from_jax_inputs, native
 from atlite_tpu_torch import convert as conv
 from atlite_tpu_torch.convert import convert_wind
 from atlite_tpu_torch.entry import HUB_HEIGHT, PANEL
@@ -108,6 +121,7 @@ from atlite_tpu_torch.ops.megakernel import (
     wind_pv_bus_megakernel,
     wind_pv_bus_plain,
 )
+from atlite_tpu_torch.gis.geometry import LineString, box
 from atlite_tpu_torch.physics import hydro as hydro_physics
 from atlite_tpu_torch.physics import line_rating as line_rating_physics
 from atlite_tpu_torch.resource import get_windturbineconfig
@@ -318,6 +332,15 @@ def run_both(args):
     return got, want
 
 
+def aggregation_route(matrix):
+    """(nb, W, route) of a (B, C) matrix by spmm_closure's routing rule."""
+    B, C = matrix.shape
+    nb, W = banded_width(matrix)
+    route = ("dense" if B * C <= aggregate._DENSE_LIMIT else
+             "banded" if nb * 128 * W <= B * C // 2 else "chunked")
+    return nb, W, route
+
+
 def continental_inputs():
     """Phase 9: the continental Cutout and region matrix."""
     t0 = time.perf_counter()
@@ -336,10 +359,7 @@ def continental_inputs():
     matrix = region_matrix(cut, *CONT_REGIONS)
     B = matrix.shape[0]
     bsr = to_bsr(matrix)
-    nb, W = banded_width(matrix)
-    # spmm_closure's routing rule
-    route = ("dense" if B * C <= aggregate._DENSE_LIMIT else
-             "banded" if nb * 128 * W <= B * C // 2 else "chunked")
+    nb, W, route = aggregation_route(matrix)
     log(f"  matrix ({B}, {C}), {matrix.nnz} entries: B*C = {B * C / 1e6:.1f}M "
         f"= {B * C / aggregate._DENSE_LIMIT:.2f} x the dense limit; banded nb={nb} "
         f"W={W} ({nb * 128 * W / 1e6:.1f}M band entries); to_bsr(32, 512) K="
@@ -875,6 +895,264 @@ def physics_phase(cut, runoff, card):
     return entries
 
 
+# phase 13: bench_continental.py's extent (its regions span the cell
+# centres), the region count of the numpy timing, the lines and plants
+CONT_EXTENT = (-12.0, 18.0, 35.0, 60.0)  # x0, x1, y0, y1
+NUMPY_REGIONS = 256
+N_LINES, N_PLANTS = 2048, 500
+BASIN_BLOCK = 8  # basins drain within 8 x 8 blocks of regions, to the block's south-west
+
+
+def continental_regions(ny, nx):
+    """{label: box} of ny x nx rectangles over the extent, as
+    bench_continental.py builds them."""
+    x0, x1, y0, y1 = CONT_EXTENT
+    gx, gy = np.linspace(x0, x1, nx + 1), np.linspace(y0, y1, ny + 1)
+    return {f"r{iy}_{ix}": box(gx[ix], gy[iy], gx[ix + 1], gy[iy + 1])
+            for iy in range(ny) for ix in range(nx)}
+
+
+def same_matrix(name, got, want, atol):
+    """(max diff, entries in one pattern only) of two sparse matrices;
+    raises unless every entry, of either pattern, agrees within ``atol``
+    (an entry only one of them stores must itself be below it)."""
+    got, want = sp.csr_matrix(got), sp.csr_matrix(want)
+    if got.shape != want.shape:
+        raise RuntimeError(f"{name}: shapes {got.shape} and {want.shape}")
+    diff = abs(got - want)
+    err = float(diff.max()) if diff.nnz else 0.0
+    apart = int(abs((got != 0).astype(np.int8) - (want != 0).astype(np.int8)).sum())
+    if not err <= atol:
+        raise RuntimeError(f"{name}: entries differ by {err}, above {atol}")
+    return err, apart
+
+
+def timed_call(fn):
+    """(result, wall s, (busy ms, idle share) or None) of one call under
+    torch.profiler, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return res, wall, device_idle(prof, wall * 1e3)
+
+
+def trace_note(idle):
+    return ("the trace holds no device record: busy and idle not measured" if idle is None
+            else f"device busy {idle[0]:.1f} ms, idle share {idle[1]:.3f}")
+
+
+def check_close(name, got, want, bounds):
+    """Raise unless |got - want| stays within each (statistic, rel) of
+    ``bounds`` times max|want|; NaN masks must agree."""
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    if got.shape != want.shape or not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise RuntimeError(f"{name}: shapes {got.shape}/{want.shape} or NaN masks differ")
+    ok = ~np.isnan(want)
+    diff = np.abs(got[ok] - want[ok])
+    scale = float(np.abs(want[ok]).max())
+    stats = {"max": float(diff.max()), "p999": float(np.quantile(diff, 0.999))}
+    log(f"    {name}: max {stats['max']:.3e}, p999 {stats['p999']:.3e} (max |CPU| {scale:.4g})")
+    for stat, rel in bounds:
+        if not stats[stat] <= rel * scale:
+            raise RuntimeError(f"{name}: {stat} {stats[stat]} above {rel} * {scale}")
+    return stats["max"]
+
+
+def sub_cutout(cut, names, t1=None, device="cpu"):
+    """The cut's named variables (first ``t1`` hours) as a Cutout on
+    ``device``, sharing the host arrays."""
+    src = cut if t1 is None else cut.isel_time(0, t1)
+    return Cutout(data={n: src.data[n] for n in names}, grid_desc=src.grid_desc,
+                  attrs=src.attrs, var_attrs={n: src.var_attrs[n] for n in names},
+                  device=device)
+
+
+def line_shapes(cut, n, rng):
+    """n polylines of five points: from a random point, 0.1-0.8 deg in a
+    random direction, the three inner points moved sideways a little."""
+    g = cut.grid_desc
+    lo, hi = np.array([g.x[0], g.y[0]]), np.array([g.x[-1], g.y[-1]])
+    start = rng.uniform(lo, hi, (n, 2))
+    ang = rng.uniform(0.0, 2 * np.pi, n)
+    step = rng.uniform(0.1, 0.8, n)[:, None] * np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    t = np.linspace(0.0, 1.0, 5)
+    wiggle = np.r_[0.0, 1.0, 1.0, 1.0, 0.0][None, :, None] * rng.normal(0.0, 0.02, (n, 5, 2))
+    pts = np.clip(start[:, None] + t[None, :, None] * step[:, None] + wiggle, lo, hi)
+    return [LineString(p) for p in pts]
+
+
+def basin_forest(regions, ny, nx, rng):
+    """Columns of a HydroBASINS-like table over the region boxes: in each
+    BASIN_BLOCK x BASIN_BLOCK block a tree drains west or south to the
+    block's south-west basin (NEXT_DOWN 0 there), DIST_MAIN growing by
+    20-90 km a step; ids shuffled."""
+    boxes = list(regions.values())
+    ids = rng.permutation(np.arange(1, ny * nx + 1)) * 10
+    down, dist = np.zeros(ny * nx, np.int64), np.zeros(ny * nx)
+    for s in range(2 * BASIN_BLOCK - 1):  # by distance from each block's corner
+        for iy in range(ny):
+            for ix in range(nx):
+                jy, jx = iy % BASIN_BLOCK, ix % BASIN_BLOCK
+                if jy + jx != s or s == 0:
+                    continue
+                nb = [(iy - 1, ix)] * (jy > 0) + [(iy, ix - 1)] * (jx > 0)
+                ty, tx = nb[rng.integers(len(nb))]
+                down[iy * nx + ix] = ids[ty * nx + tx]
+                dist[iy * nx + ix] = dist[ty * nx + tx] + rng.uniform(20.0, 90.0)
+    return {"HYBAS_ID": ids.tolist(), "NEXT_DOWN": down.tolist(), "DIST_MAIN": dist.tolist(),
+            "geometry": boxes}
+
+
+def gis_phase(cut, card, regions_shape=CONT_REGIONS, n_lines=N_LINES, n_plants=N_PLANTS,
+              n_numpy=NUMPY_REGIONS):
+    """Phase 13: geometry to (bus, time) series on the continental cut;
+    returns its entries of the converters line."""
+    T, (Y, X) = len(cut.grid_desc.time), cut.shape
+    C = Y * X
+    entries = []
+    log(f"geometry on {card} (T={T} h, C={C}):")
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    if lib is None:
+        raise RuntimeError("the C++ geometry engine did not build or load")
+    log(f"  C++ geometry engine: {native.library_path().name}, built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- the indicator matrix, by the engine and by numpy
+    ny, nx = regions_shape
+    regions = continental_regions(ny, nx)
+    t0 = time.perf_counter()
+    matrix = sp.csr_matrix(cut.indicatormatrix(regions))
+    engine_s = time.perf_counter() - t0
+    first = dict(list(regions.items())[:n_numpy])
+    saved = native.get_lib
+    native.get_lib = lambda: None  # the numpy clipper, for the same regions
+    try:
+        t0 = time.perf_counter()
+        plain = cut.indicatormatrix(first)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        native.get_lib = saved
+    # the two clip and sum in another order: 1e-12 of area (squared degrees),
+    # as tests/test_native.py holds them, in units of the cell's area
+    g = cut.grid_desc
+    atol = 1e-12 / (g.dx * g.dy)
+    err, apart = same_matrix("indicator matrix, engine vs numpy", matrix[:n_numpy], plain, atol)
+    t0 = time.perf_counter()
+    engine_first = cut.indicatormatrix(first)
+    engine_first_s = time.perf_counter() - t0
+    same_matrix("indicator matrix, engine on its own rows", matrix[:n_numpy], engine_first, 0.0)
+    B = matrix.shape[0]
+    nb, W, route = aggregation_route(matrix)
+    log(f"  indicator matrix of {B} regions: {engine_s:.3f} s by the engine; the first "
+        f"{n_numpy}: {engine_first_s:.3f} s by the engine, {numpy_s:.2f} s by numpy (the same "
+        f"matrix: entries within {err:.1e} of {atol:.1e}, {apart} stored by one side only, "
+        f"slivers of cells that a region's edge meets); {matrix.nnz} entries (phase 9's matrix, "
+        f"each cell to one region by its centre: {C}), rows summing to {matrix.sum(axis=1).min():.3f}-"
+        f"{matrix.sum(axis=1).max():.3f} cells; banded nb={nb} W={W}; route {route}")
+    if route != "banded":
+        raise RuntimeError(f"the indicator matrix takes the {route} route, not banded")
+    entries.append({"name": "indicatormatrix", "regions": B, "engine_s": engine_s,
+                    "numpy_regions": n_numpy, "numpy_s": numpy_s, "numpy_max_diff": err,
+                    "numpy_entries_apart": apart,
+                    "engine_s_same_regions": engine_first_s, "nnz": int(matrix.nnz),
+                    "nb": nb, "W": W})
+
+    # ---- wind by shapes, PV by layout and shapes
+    layout = cut.uniform_density_layout(1e-6, crs=3035)  # 1 MW a km^2
+    pv_orient = {"slope": 30.0, "azimuth": 180.0}
+    runs = {
+        "wind_shapes": (
+            lambda c, **k: c.wind("Vestas_V112_3MW", per_unit=True, aggregate_time=None, **k),
+            "wind"),
+        "pv_layout_shapes": (
+            lambda c, **k: c.pv("CSi", pv_orient, layout=layout, aggregate_time=None, **k),
+            "pv"),
+    }
+    cpu = sub_cutout(cut, list(cut.data), t1=48)
+    for name, (fn, kind) in runs.items():
+        wind_pv_bus_megakernel.launches = bsr_spmm_kernel.launches = 0
+        res, wall, idle = timed_call(lambda: fn(cut, shapes=regions))
+        vals = np.asarray(res.values)
+        if vals.shape != (B, T) or not np.isfinite(vals).all():
+            raise RuntimeError(f"{name}: {vals.shape}, finite {np.isfinite(vals).all()}")
+        by_matrix = np.asarray(fn(cut, matrix=matrix).values)
+        if not np.array_equal(vals, by_matrix):
+            raise RuntimeError(f"{name}: shapes= and matrix= give other bits")
+        log(f"  {name}: {wall:.3f} s resident, the indicator matrix included (host work "
+            f"included, under torch.profiler); {trace_note(idle)}; kernel launches "
+            f"{wind_pv_bus_megakernel.launches + bsr_spmm_kernel.launches}; equal bit for bit "
+            "to the call with the matrix; first 48 h against the CPU:")
+        want = np.asarray(fn(cpu, matrix=matrix).values)
+        bounds = (("max", REL_TOL),) if kind == "wind" else (("p999", REL_TOL), ("max", 2e-2))
+        err = check_close(name, vals[:, :48], want, bounds)
+        entries.append({"name": name, "wall_s": wall, "busy_ms": idle and idle[0],
+                        "idle_share": idle and idle[1], "max_abs_err_cpu": err})
+
+    # ---- line rating
+    rng = np.random.default_rng(13)
+    lines = line_shapes(cut, n_lines, rng)
+    t0 = time.perf_counter()
+    inter = sp.csr_matrix(cut.intersectionmatrix(lines))
+    inter_s = time.perf_counter() - t0
+    K = int(np.diff(inter.indptr).max())
+    res, wall, idle = timed_call(lambda: cut.line_rating(lines, line_resistance=1e-4))
+    vals = np.asarray(res.values)
+    if vals.shape != (n_lines, T) or not np.isfinite(vals).any():
+        raise RuntimeError(f"line_rating: {vals.shape}")
+    chunk = max(1, min(T, int(48e6 // max(1, n_lines * K))))
+    log(f"  line_rating: {n_lines} lines of four segments, {inter.nnz} cells (K={K} a line at "
+        f"most, mean {inter.nnz / n_lines:.1f}); intersection matrix {inter_s:.3f} s on the host; "
+        f"the call {wall:.3f} s (the intersection matrix, the plan, {-(-T // chunk)} chunk(s) of "
+        f"{chunk} h gathered on the card and rated; host work included, under torch.profiler); "
+        f"{trace_note(idle)}; {int(np.isnan(vals).sum())} NaN entries (phase 12 times "
+        "batched_line_rating alone at 2048 x 16 x 720 h); first 48 h against the CPU:")
+    lr_cpu = sub_cutout(cut, [v for v in conv._LINE_FIELDS], t1=48)
+    err = check_close("line_rating", vals[:, :48],
+                      lr_cpu.line_rating(lines, line_resistance=1e-4).values,
+                      (("max", REL_TOL),))
+    entries.append({"name": "line_rating", "lines": n_lines, "K": K, "intersection_s": inter_s,
+                    "wall_s": wall, "busy_ms": idle and idle[0], "idle_share": idle and idle[1],
+                    "max_abs_err_cpu": err})
+
+    # ---- hydro
+    basins = basin_forest(regions, ny, nx, rng)
+    x0, x1, y0, y1 = CONT_EXTENT
+    plants = {"lon": rng.uniform(x0 + 0.01, x1 - 0.01, n_plants).tolist(),
+              "lat": rng.uniform(y0 + 0.01, y1 - 0.01, n_plants).tolist()}
+    res, wall, idle = timed_call(lambda: cut.hydro(plants, basins, aggregate_time=None))
+    vals = np.asarray(res.values)
+    if vals.shape != (n_plants, T) or not np.isfinite(vals).all() or not vals.max() > 0:
+        raise RuntimeError(f"hydro: {vals.shape}, finite {np.isfinite(vals).all()}")
+    t0 = time.perf_counter()
+    want = sub_cutout(cut, ["runoff", "height"]).hydro(plants, basins, aggregate_time=None).values
+    cpu_s = time.perf_counter() - t0
+    log(f"  hydro: {n_plants} plants, {len(basins['HYBAS_ID'])} basins in {len(basins['HYBAS_ID']) // BASIN_BLOCK ** 2} "
+        f"trees; {wall:.3f} s (basins, their indicator matrix, runoff, routing; host work "
+        f"included, under torch.profiler); {trace_note(idle)}; the CPU {cpu_s:.2f} s; against "
+        "the CPU over all hours:")
+    err = check_close("hydro", vals, want, (("max", REL_TOL),))
+    entries.append({"name": "hydro", "plants": n_plants, "basins": len(basins["HYBAS_ID"]),
+                    "wall_s": wall, "busy_ms": idle and idle[0], "idle_share": idle and idle[1],
+                    "cpu_s": cpu_s, "max_abs_err_cpu": err})
+
+    # ---- another turbine, smoothed
+    res, wall, idle = timed_call(lambda: cut.wind("NREL_ReferenceTurbine_2020ATB_5.5MW",
+                                                  smooth=True, matrix=matrix,
+                                                  aggregate_time=None))
+    vals = np.asarray(res.values)
+    if vals.shape != (B, T) or not np.isfinite(vals).all():
+        raise RuntimeError(f"smoothed wind: {vals.shape}, finite {np.isfinite(vals).all()}")
+    log(f"  wind, NREL_ReferenceTurbine_2020ATB_5.5MW smoothed: {wall:.3f} s resident; "
+        f"{trace_note(idle)}; finite ({B}, {T}), mean {vals.mean():.4g} MW a region")
+    entries.append({"name": "wind_smoothed", "wall_s": wall, "busy_ms": idle and idle[0],
+                    "idle_share": idle and idle[1]})
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1071,6 +1349,9 @@ def main():
     converters, runoff = converters_phase(cut, matrix, card)
     converters += physics_phase(cut, runoff, card)
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    converters += gis_phase(cut, card)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"converters": converters}), flush=True)
 
     kernels = [{

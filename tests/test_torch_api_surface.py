@@ -1,0 +1,161 @@
+"""The port's public surface against the JAX package's: every public
+function of ``atlite_tpu.convert`` has its counterpart with the same
+signature (port-only parameters listed), and the public members of
+``Cutout`` and ``DataArray`` are the JAX ones less an explicit list of
+names deferred to later slices, which each slice shortens.
+
+Also the five keyword arguments of ``convert_and_aggregate`` that the
+port once dropped (``shapes_crs``, ``capacity_factor``,
+``capacity_factor_timeseries``, ``show_progress``, ``dask_kwargs``): each
+is accepted with the JAX semantics, and the deprecated two give the JAX
+result with its ``FutureWarning``.  Tolerance: rtol 1e-5, atol 2e-5
+(float32 chains, JAX with x64 off), as in ``test_torch_convert.py``.
+"""
+
+import inspect
+import warnings
+
+import jax
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import atlite_tpu
+import atlite_tpu.convert as jconvert
+from atlite_tpu.dataarray import DataArray as JDataArray
+from atlite_tpu.gis.geometry import box as jbox
+import atlite_tpu_torch
+import atlite_tpu_torch.convert as tconvert
+from atlite_tpu_torch.dataarray import DataArray
+from atlite_tpu_torch.gis.geometry import box
+
+torch.set_num_threads(1)
+
+# parameters only the port has: where its functions run
+PORT_ONLY = {"convert_line_rating": {"device"}}
+# members of the JAX classes that later slices port (ROADMAP queue 1)
+DEFERRED_CUTOUT = {
+    "availabilitymatrix",                                  # item 5
+    "available_features", "bounds", "coords", "dt", "dx", "dy", "equals", "extent", "grid",
+    "merge", "name", "prepared", "prepared_features", "sel", "to_file", "transform",
+    "transform_r",                                         # item 4
+    "shard", "unshard",                                    # item 7
+    "to_netcdf",                                           # item 8
+}
+DEFERRED_DATAARRAY = {
+    "assign_attrs", "clip", "dtype", "fillna", "get_axis_num", "isel", "max", "min", "ndim",
+    "plot", "quantile", "rename", "sel", "to_pandas", "transpose", "where",  # item 4
+}
+PORT_ONLY_MEMBERS = {"Cutout": {"torch_dtype"}, "DataArray": set()}
+
+
+def public_functions(module):
+    return {n: f for n, f in vars(module).items()
+            if inspect.isfunction(f) and not n.startswith("_") and f.__module__ == module.__name__}
+
+
+JAX_FUNCTIONS = public_functions(jconvert)
+
+
+def test_convert_has_every_public_function():
+    assert set(public_functions(tconvert)) == set(JAX_FUNCTIONS)
+
+
+@pytest.mark.parametrize("name", sorted(JAX_FUNCTIONS))
+def test_convert_signature(name):
+    want = inspect.signature(JAX_FUNCTIONS[name])
+    got = inspect.signature(getattr(tconvert, name))
+    extra = PORT_ONLY.get(name, set())
+    kept = [p for p in got.parameters.values() if p.name not in extra]
+    assert [(p.name, p.kind, p.default) for p in kept] == \
+        [(p.name, p.kind, p.default) for p in want.parameters.values()]
+    assert extra <= set(got.parameters)
+
+
+def public_members(cls):
+    return {n for n in dir(cls) if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("jax_cls, port_cls, deferred", [
+    (atlite_tpu.Cutout, atlite_tpu_torch.Cutout, DEFERRED_CUTOUT),
+    (JDataArray, DataArray, DEFERRED_DATAARRAY),
+], ids=["Cutout", "DataArray"])
+def test_class_members(jax_cls, port_cls, deferred):
+    want, got = public_members(jax_cls), public_members(port_cls)
+    # the deferred list names exactly what is missing: a member ported
+    # leaves it, and nothing else may be missing
+    assert want - got == deferred
+    assert got - want == PORT_ONLY_MEMBERS[port_cls.__name__]
+
+
+SMALL = dict(module="synthetic", x=slice(-4, 1.5), y=slice(56, 62), time="2013-01-01")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    with jax.enable_x64(False):
+        jc = atlite_tpu.Cutout(None, **SMALL).prepare(features=["wind"])
+    tc = atlite_tpu_torch.Cutout(device="cpu", **SMALL).prepare(features=["wind"])
+    C = tc.shape[0] * tc.shape[1]
+    m = sp.random(3, C, density=0.3, random_state=1, format="csr", dtype=np.float32)
+    return jc, tc, m
+
+
+def wind(c, **kw):
+    return c.wind("Vestas_V112_3MW", **kw)
+
+
+def close(got, want):
+    assert got.dims == want.dims
+    np.testing.assert_allclose(got.values, np.asarray(want.values), rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kw", [dict(show_progress=False), dict(show_progress=True),
+                                dict(dask_kwargs={}), dict(dask_kwargs={"scheduler": "threads"})],
+                         ids=["show_progress_false", "show_progress_true", "dask_kwargs_empty",
+                              "dask_kwargs_scheduler"])
+def test_accepted_and_ignored(pair, kw):
+    jc, tc, m = pair
+    with jax.enable_x64(False):
+        want = wind(jc, matrix=m, aggregate_time="sum", **kw)
+    got = wind(tc, matrix=m, aggregate_time="sum", **kw)
+    assert got.values.shape == (3,)
+    close(got, want)
+    # and without aggregation in space
+    got = wind(tc, aggregate_time="mean", **kw)
+    with jax.enable_x64(False):
+        close(got, wind(jc, aggregate_time="mean", **kw))
+
+
+@pytest.mark.parametrize("shapes_crs", [4326, "EPSG:4326", 3035])
+def test_shapes_crs(pair, shapes_crs):
+    from atlite_tpu.gis.crs import transform_points
+
+    jc, tc, _ = pair
+    x0, y0, x1, y1 = -3.3, 56.6, 0.9, 60.1
+    if shapes_crs == 3035:
+        (x0, x1), (y0, y1) = transform_points(np.array([x0, x1]), np.array([y0, y1]), 4326, 3035)
+    with jax.enable_x64(False):
+        want = wind(jc, shapes=[jbox(x0, y0, x1, y1)], shapes_crs=shapes_crs,
+                    aggregate_time=None)
+    got = wind(tc, shapes=[box(x0, y0, x1, y1)], shapes_crs=shapes_crs, aggregate_time=None)
+    assert got.values.shape == (1, 24)
+    close(got, want)
+
+
+@pytest.mark.parametrize("flag, agg", [("capacity_factor", "mean"),
+                                       ("capacity_factor_timeseries", None)])
+def test_deprecated_capacity_factor(pair, flag, agg):
+    jc, tc, m = pair
+    with jax.enable_x64(False), pytest.warns(FutureWarning, match=flag):
+        want = wind(jc, matrix=m, **{flag: True})
+    with pytest.warns(FutureWarning, match=flag):
+        got = wind(tc, matrix=m, **{flag: True})
+    close(got, want)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        close(got, wind(tc, matrix=m, aggregate_time=agg))
+    for c in (jc, tc):
+        with pytest.raises(ValueError, match="Cannot use 'aggregate_time'"):
+            wind(c, matrix=m, aggregate_time="sum", **{flag: True})

@@ -228,5 +228,7 @@ def test_argument_errors(small):
         wind(tc, matrix=m[:, :-1], aggregate_time=None)
     with pytest.raises(ValueError, match="single dimension"):
         wind(tc, matrix=m, index=[(1, 2)] * 6, aggregate_time=None)
-    with pytest.raises(NotImplementedError, match="GIS"):
+    with pytest.raises(TypeError, match="as geometry"):
         wind(tc, shapes=["a"], aggregate_time=None)
+    with pytest.raises(ValueError, match="ambiguous"):
+        wind(tc, matrix=m, shapes=["a"], aggregate_time=None)

@@ -148,6 +148,25 @@ assert h.values.shape == (3, 1) and k.values.shape == i.values.shape == (3, 24)
 f = torch.rand(24, 575)
 assert bsr_spmm.bsr_spmm_kernel(bsr_spmm.to_bsr(m), f).shape == (24, 3)
 assert bsr_spmm.bsr_spmm_kernel.launches == 0
+from atlite_tpu_torch import native, resource
+from atlite_tpu_torch.gis.geometry import LineString, box
+assert native.get_lib() is not None
+regions = {{"n": box(-4, 59, 1.5, 62), "s": box(-4, 56, 1.5, 59)}}
+for kw in (dict(), dict(time_chunk=10)):
+    r = c.wind("Vestas_V112_3MW", shapes=regions, per_unit=True, aggregate_time=None, **kw)
+    assert r.values.shape == (2, 24) and np.isfinite(r.values).all()
+q = c.pv("CSi", {{"slope": 30, "azimuth": 180}}, layout=c.uniform_density_layout(1.0, crs=3035),
+         shapes=list(regions.values()), shapes_crs=4326, aggregate_time="sum")
+assert q.values.shape == (2,)
+s = c.wind(resource.WINDTURBINE_DIRECTORY / "eno_126_4", smooth=True, matrix=m,
+           aggregate_time=None)
+assert s.values.shape == (3, 24) and np.isfinite(s.values).all()
+basins = {{"HYBAS_ID": [1, 2], "NEXT_DOWN": [0, 1], "DIST_MAIN": [10.0, 90.0],
+          "geometry": [box(-4, 56, -1, 62), box(-1, 56, 1.5, 62)]}}
+h = c.hydro({{"lon": [-2.0], "lat": [58.0]}}, basins, aggregate_time=None)
+assert h.values.shape == (1, 24) and h.values.max() > 0
+lr = c.line_rating([LineString([(-3.5, 57.0), (0.5, 60.0)])], line_resistance=1e-4)
+assert lr.values.shape == (1, 24) and (lr.values > 0).all()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not loaded, loaded
 print("PORT RUNS ALONE")
@@ -158,8 +177,9 @@ def test_port_runs_without_jax_and_pandas():
     """Every module of the port imports, and the headline step, the
     Cutout's wind and PV (resident and streamed packed), heat demand
     (streamed packed), CSP from its YAML file, tracked Hay-Davies
-    irradiation and the BSR entry run, with jax, atlite_tpu, pandas and
-    yaml refused."""
+    irradiation, the BSR entry, the C++ geometry engine, wind and PV by
+    shapes (with a layout), a smoothed turbine read by its Path, hydro
+    and line rating run, with jax, atlite_tpu, pandas and yaml refused."""
     out = subprocess.run(
         [sys.executable, "-c", BLOCKER.format(banned=BANNED)],
         cwd=ROOT, capture_output=True, text=True, timeout=600)

@@ -8,7 +8,8 @@ plan with a NaN cell (a negative heat balance), a line whose cells are
 all NaN and a line with no cell, in float32 against JAX with x64 off;
 ``shift_and_aggregate`` against ``np.roll`` and JAX, shifts past T and 0
 included; ``travel_hours`` against JAX on a pandas Series and on a dict;
-``Cutout.hydro``/``line_rating`` naming the GIS slice.
+``Cutout.hydro``/``line_rating`` bound to the converters (their geometry
+is held against JAX in ``test_torch_hydro_line_rating_gis.py``).
 
 Tolerance: 1e-5 * max|JAX| in absolute terms, NaN masks identical;
 float64 cases (the single-line ones, as the JAX tests run them) at
@@ -180,9 +181,19 @@ def test_travel_hours_equals_jax():
 
 
 def test_cutout_hydro_and_line_rating_name_the_gis_slice():
+    """The GIS slice wired both: basins and lines now convert."""
+    from atlite_tpu_torch.gis.geometry import LineString, box
+
     c = Cutout(device="cpu", module="synthetic", x=slice(-1, 0), y=slice(50, 51),
-               time="2013-01-01")
-    with pytest.raises(NotImplementedError, match="GIS slice.*item 8.*shift_and_aggregate"):
-        c.hydro(plants=None, hydrobasins=None)
-    with pytest.raises(NotImplementedError, match="GIS slice.*item 8.*batched_line_rating"):
-        c.line_rating(shapes=[], line_resistance=1e-4)
+               time="2013-01-01").prepare()
+    basins = {"HYBAS_ID": [1, 2], "NEXT_DOWN": [0, 1], "DIST_MAIN": [10.0, 40.0],
+              "geometry": [box(-1.1, 49.9, -0.5, 51.1), box(-0.5, 49.9, 0.1, 51.1)]}
+    inflow = c.hydro(plants={"lon": [-0.8], "lat": [50.5]}, hydrobasins=basins,
+                     aggregate_time=None)
+    assert inflow.dims == ("plant", "time") and inflow.values.shape == (1, 24)
+    assert np.isfinite(inflow.values).all() and inflow.values.max() > 0
+    rating = c.line_rating(shapes=[LineString([(-0.9, 50.2), (-0.1, 50.8)])],
+                           line_resistance=1e-4)
+    assert rating.dims == ("name", "time") and rating.values.shape == (1, 24)
+    assert (rating.values > 0).all()
+    assert c.line_rating(shapes=[], line_resistance=1e-4).values.shape == (0, 24)
