@@ -1,9 +1,10 @@
 """atlite_tpu_torch — the PyTorch/CUDA port of atlite_tpu for NVIDIA Hopper.
 
 The headline wind + PV + bus step (``entry.step_fn``) runs on a CUDA card
-through one hand-written kernel (``ops/csrc/megakernel.cu``); the Cutout's
-``convert_and_aggregate`` (wind, PV) runs resident or streamed in time
-chunks with banded aggregation; ``ops/bsr_spmm.bsr_spmm_kernel`` is the
+through one hand-written kernel (``ops/csrc/megakernel.cu``); the Cutout,
+in memory or reopened from its ``.atc`` store (``core/store.py``), runs
+every converter through ``convert_and_aggregate``, resident or streamed in
+time chunks with banded aggregation; ``ops/bsr_spmm.bsr_spmm_kernel`` is the
 block-sparse aggregation entry (``ops/csrc/bsr_spmm.cu``).  On the CPU the
 same entry points run the plain PyTorch modules, which the tests hold
 against the JAX package.  Module names follow ``atlite_tpu`` so each

@@ -1,34 +1,47 @@
 """The Cutout: grid, prepared weather fields and converters (counterpart
-of ``atlite_tpu/cutout.py``), held in memory.
+of ``atlite_tpu/cutout.py``), in memory or in an ``.atc`` store.
 
-The fields live on the host as numpy arrays and are mirrored as tensors on
-the cutout's device by ``fields()``, where the converters run.  A time
-slice made by ``isel_time`` (the streamer's chunk) stages all its time
-fields in one batched upload, raw or packed as CF int16 codes
-(``pack_params``), and reuses its parent's staged static fields.
+The fields live on the host as numpy arrays (read-only memory maps of
+the store's files when the cutout was reopened from disk) and are
+mirrored as tensors on the cutout's device by ``fields()``, where the
+converters run.  A time slice made by ``isel_time`` (the streamer's
+chunk) stages all its time fields in one batched upload, raw or packed
+as CF int16 codes (``pack_params``), and reuses its parent's staged
+static fields.
 
-Every converter of the JAX Cutout is bound, and the GIS members that
-build aggregation matrices and layouts from shapes (``indicatormatrix``,
-``intersectionmatrix``, ``area`` and the three layouts).  The on-disk
-``.atc`` store, NetCDF files, ``sel``/``merge``, ``grid`` and the
-availability matrix wait for later slices (ROADMAP queue 1).
+Every converter of the JAX Cutout is bound, the GIS members that build
+aggregation matrices and layouts from shapes (``indicatormatrix``,
+``intersectionmatrix``, ``area`` and the three layouts), the grid's
+metadata, ``sel``/``merge``/``equals`` and the store
+(``prepare`` checkpoints each feature into it, ``to_file`` writes it).
+NetCDF files, sharding and the availability matrix wait for later
+slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import shutil
+import tempfile
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from atlite_tpu_torch import convert
 from atlite_tpu_torch.core.grid import Grid, coordinate_range
+from atlite_tpu_torch.core.store import read_store, update_store, write_store
 from atlite_tpu_torch.dataarray import DataArray
 from atlite_tpu_torch.datasets import modules as datamodules
 from atlite_tpu_torch.entry import resolve_device
 from atlite_tpu_torch.gis.crs import transform_points
+from atlite_tpu_torch.gis.geometry import box
 from atlite_tpu_torch.gis.matrix import compute_indicatormatrix, compute_intersectionmatrix
+from atlite_tpu_torch.table import Table
+
+logger = logging.getLogger(__name__)
 
 _TORCH_DTYPE = {np.dtype("float32"): torch.float32, np.dtype("float64"): torch.float64}
 NAN_CODE = 65535  # the packed NaN sentinel; codes of values run 0..65534
@@ -42,18 +55,24 @@ def _time_dims(var_attrs, name):
 class Cutout:
     """Weather-data cutout on one device.
 
-    ``Cutout(module=..., x=..., y=..., time=..., dx=..., dy=...)`` (or
-    ``bounds=(x1, y1, x2, y2)``) makes a new cutout to ``prepare``;
-    ``Cutout(data=..., grid_desc=...)`` wraps prepared arrays.  ``device``
-    defaults to the current CUDA card and raises without one; pass
-    ``device="cpu"`` for the plain path on the CPU.
+    ``Cutout(path)`` reopens the ``.atc`` store at ``path`` (the suffix is
+    added), its arrays memory-mapped; ``Cutout(path, module=..., x=...,
+    y=..., time=...)`` on a new path makes a cutout that ``prepare``
+    writes there.  Without a path: ``Cutout(module=..., x=..., y=...,
+    time=..., dx=..., dy=...)`` (or ``bounds=(x1, y1, x2, y2)``) makes an
+    in-memory cutout; ``Cutout(data=..., grid_desc=...)`` wraps prepared
+    arrays.  ``device`` defaults to the current CUDA card and raises
+    without one; pass ``device="cpu"`` for the plain path on the CPU.
     """
 
     def __init__(self, path=None, device=None, **cutoutparams):
         if path is not None:
-            raise NotImplementedError(
-                "cutouts on disk (.atc store, NetCDF) are not ported yet "
-                "(ROADMAP queue 1, item 10); build one in memory")
+            path = Path(path)
+            if path.suffix == ".nc":
+                raise NotImplementedError(
+                    "NetCDF cutouts are not ported yet (ROADMAP queue 1, item 5: file formats "
+                    "and dataset modules); use an .atc store")
+            path = path.with_suffix(".atc")
         self.device = resolve_device(device)
         self.dtype = np.dtype(cutoutparams.pop("dtype", "float32"))
         if self.dtype not in _TORCH_DTYPE:
@@ -65,7 +84,16 @@ class Cutout:
         self._pack16 = None
         self._pinned = None  # the streamer's pinned buffers (convert._Stager)
 
-        if data is not None:
+        if path is not None and path.exists():
+            grid_kwargs, stored, attrs, var_attrs = read_store(path)
+            self.grid_desc = Grid(**grid_kwargs)
+            self.data = dict(stored)
+            self.attrs = dict(attrs)
+            self.var_attrs = dict(var_attrs)
+            if cutoutparams:
+                warnings.warn(f"Arguments {', '.join(cutoutparams)} are ignored, since cutout "
+                              "is already built.")
+        elif data is not None:
             grid_desc = cutoutparams.pop("grid_desc", None)
             if grid_desc is None:
                 raise TypeError("data= requires grid_desc=")
@@ -98,6 +126,7 @@ class Cutout:
             self.var_attrs = {}
             self.attrs = {"module": module, "prepared_features": [],
                           "dx": dx, "dy": dy, "dt": dt, **cutoutparams}
+        self.path = path
 
         modules = np.atleast_1d(self.attrs.get("module"))
         unknown = [m for m in modules if m not in datamodules]
@@ -106,6 +135,10 @@ class Cutout:
                              f"{sorted(datamodules)}")
 
     # ------------------------------------------------------------------ meta
+    @property
+    def name(self):
+        return self.path.stem if self.path else "<memory>"
+
     @property
     def module(self):
         return self.attrs.get("module")
@@ -116,8 +149,42 @@ class Cutout:
         return datamodules[np.atleast_1d(self.module)[0]].crs
 
     @property
+    def coords(self):
+        """{"x", "y", "time"} as numpy arrays (stamps as datetime64[ns])."""
+        g = self.grid_desc
+        return {"x": g.x, "y": g.y, "time": g.time_index}
+
+    @property
     def shape(self):
         return self.grid_desc.shape
+
+    @property
+    def extent(self):
+        return self.grid_desc.extent
+
+    @property
+    def bounds(self):
+        return self.grid_desc.bounds
+
+    @property
+    def transform(self):
+        return self.grid_desc.transform
+
+    @property
+    def transform_r(self):
+        return self.grid_desc.transform_r
+
+    @property
+    def dx(self):
+        return self.grid_desc.dx
+
+    @property
+    def dy(self):
+        return self.grid_desc.dy
+
+    @property
+    def dt(self):
+        return self.grid_desc.dt
 
     @property
     def torch_dtype(self):
@@ -131,18 +198,63 @@ class Cutout:
                   if k.startswith("chunksize_")}
         return chunks or None
 
+    @property
+    def available_features(self):
+        """Table of the variables of each (module, feature) the cutout's
+        module(s) can prepare (the JAX package's Series)."""
+        rows = [((m, feature), v) for m in np.atleast_1d(self.module)
+                for feature, variables in datamodules[m].features.items() for v in variables]
+        return Table({"variable": [v for _, v in rows]}, index=[k for k, _ in rows],
+                     index_names=("module", "feature"), series=True)
+
+    @property
+    def prepared_features(self):
+        """Table of the prepared variables by (module, feature)."""
+        index = [(self.var_attrs.get(v, {}).get("module"), self.var_attrs.get(v, {}).get("feature"))
+                 for v in self.data]
+        return Table({"variable": list(self.data)}, index=index,
+                     index_names=("module", "feature"), series=True)
+
+    @property
+    def prepared(self):
+        avail, prep = self.available_features, self.prepared_features
+        return set(avail.index) <= set(prep.index) and set(avail.values) <= set(prep.values)
+
     def _invalidate(self):
         self._fields_cache = None
         self._static_cache = None
         self._pack_cache = None
 
     # ---------------------------------------------------------- preparation
-    def prepare(self, features=None, overwrite=False, **params):
+    def prepare(self, features=None, tmpdir=None, data_format=None, overwrite=False,
+                compression=None, show_progress=False, dask_kwargs=None,
+                monthly_requests=False, concurrent_requests=False, **params):
         """Generate the missing features from the cutout's dataset
-        module(s), in memory; floating variables are stored in the cutout's
-        dtype with their range (``pack_min``/``pack_max``) for packing."""
+        module(s); floating variables are stored in the cutout's dtype with
+        their range (``pack_min``/``pack_max``) for packing.  A cutout with
+        a path checkpoints each feature into its store (``update_store``:
+        that feature's files and the manifest).  An already prepared cutout
+        returns at once.  ``compression`` applies to NetCDF files (not
+        ported) and ``dask_kwargs``/``show_progress`` to nothing; the rest
+        go to the dataset module."""
+        del dask_kwargs, show_progress, compression
+        if data_format is not None:
+            params.setdefault("data_format", data_format)
+        params.setdefault("monthly_requests", monthly_requests)
+        params.setdefault("concurrent_requests", concurrent_requests)
+        if tmpdir is None:
+            # a scratch directory for the modules' downloads, removed after
+            tmpdir = tempfile.mkdtemp(prefix="atlite_tpu_torch_prepare")
+            try:
+                return self.prepare(features=features, tmpdir=tmpdir, overwrite=overwrite,
+                                    **params)
+            finally:
+                shutil.rmtree(tmpdir, ignore_errors=True)
+        if self.prepared and not overwrite:
+            logger.info("Cutout already prepared.")
+            return self
         features = set(np.atleast_1d(features)) if features is not None else None
-        prepared = {(va.get("module"), va.get("feature")) for va in self.var_attrs.values()}
+        prepared = set(self.prepared_features.index)
         written = set()  # module-priority guard under overwrite
         for module in np.atleast_1d(self.module):
             mod = datamodules[module]
@@ -154,7 +266,9 @@ class Cutout:
                            if (v not in self.data or overwrite) and v not in written]
                 if not missing:
                     continue
-                result = mod.get_data(self, feature, **{**self.attrs, **params})
+                logger.info(f"Preparing feature '{feature}' from module '{module}'")
+                result = mod.get_data(self, feature, tmpdir=tmpdir, **{**self.attrs, **params})
+                new_vars = []
                 for var, (dims, arr) in result.items():
                     if var not in missing:
                         continue
@@ -171,14 +285,44 @@ class Cutout:
                                 va["pack_min"], va["pack_max"] = float(mn), float(mx)
                     self.data[var] = arr
                     self.var_attrs[var] = va
+                    new_vars.append(var)
                 pf = set(np.atleast_1d(self.attrs.get("prepared_features", [])))
                 self.attrs["prepared_features"] = sorted(pf | {feature})
                 self._invalidate()
+                if self.path is not None:
+                    self.to_file(update_vars=new_vars)
         return self
+
+    def to_file(self, fn=None, update_vars=None):
+        """Write the cutout to its ``.atc`` store (or to ``fn``, as given).
+        With ``update_vars`` only those variables and the manifest are
+        written (``update_store``)."""
+        fn = self.path if fn is None else Path(fn)
+        if fn is None:
+            raise ValueError("cutout has no path; pass fn=")
+        if fn.suffix == ".nc":
+            raise NotImplementedError("NetCDF files are not ported yet (ROADMAP queue 1, "
+                                      "item 5: file formats and dataset modules)")
+        if update_vars is not None:
+            update_store(fn, self.grid_desc, self.data, self.attrs, self.var_attrs, update_vars)
+        else:
+            write_store(fn, self.grid_desc, self.data, self.attrs, self.var_attrs)
 
     # -------------------------------------------------------------- device
     def _put(self, arr, dtype):
-        return torch.as_tensor(np.asarray(arr), dtype=_TORCH_DTYPE[dtype], device=self.device)
+        """A host array as a tensor on the cutout's device.  A read-only
+        array (a reopened store's memory map) is copied into memory of its
+        own on the CPU, where a tensor would alias it, and read by the
+        upload alone on a card."""
+        a = np.asarray(arr)
+        if not a.flags.writeable:
+            if self.device.type == "cpu":
+                a = np.array(a, dtype=dtype)
+            else:
+                with warnings.catch_warnings():
+                    warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+                    return torch.as_tensor(a, dtype=_TORCH_DTYPE[dtype], device=self.device)
+        return torch.as_tensor(a, dtype=_TORCH_DTYPE[dtype], device=self.device)
 
     def fields(self, dtype=None):
         """Tensors of all prepared variables on the cutout's device, plus
@@ -321,6 +465,14 @@ class Cutout:
         return self._static_cache
 
     # ------------------------------------------------------------------ gis
+    @property
+    def grid(self):
+        """Table of the cell centres (x, y) and their box geometries, x
+        fastest (the JAX package's DataFrame)."""
+        coords = self.grid_desc.cell_coords()
+        cells = [box(*b) for b in self.grid_desc.cell_bounds()]
+        return Table({"x": coords[:, 0], "y": coords[:, 1], "geometry": cells})
+
     def indicatormatrix(self, shapes, shapes_crs=4326):
         """(shapes, cells) sparse matrix of the share of each cell that
         each shape covers (``gis.compute_indicatormatrix``)."""
@@ -374,6 +526,72 @@ class Cutout:
         layout = np.zeros(self.shape)
         np.add.at(layout, (iy, ix), np.asarray(data[col], dtype=float))
         return DataArray(layout, coords={"y": g.y, "x": g.x}, dims=("y", "x"))
+
+    # ------------------------------------------------------- sel/merge/equals
+    def sel(self, path=None, bounds=None, buffer=0, **kwargs):
+        """Sub-cutout by label slices of x, y and time (or ``bounds``
+        widened by ``buffer``), in memory on the same device."""
+        if bounds is not None:
+            x1, y1, x2, y2 = bounds
+            kwargs.update(x=slice(x1 - buffer, x2 + buffer), y=slice(y1 - buffer, y2 + buffer))
+        g = self.grid_desc
+        new_grid = g.sel(x=kwargs.get("x"), y=kwargs.get("y"), time=kwargs.get("time"))
+        xm, ym = np.isin(g.x, new_grid.x), np.isin(g.y, new_grid.y)
+        tm = np.isin(g.time, new_grid.time)
+        data = {}
+        for name, arr in self.data.items():
+            dims = tuple(self.var_attrs.get(name, {}).get("dims", ("time", "y", "x")))
+            a = np.asarray(arr)
+            if dims == ("time", "y", "x"):
+                a = a[tm][:, ym][:, :, xm]
+            elif dims == ("y", "x"):
+                a = a[ym][:, xm]
+            data[name] = a
+        return Cutout(path, data=data, grid_desc=new_grid, attrs=dict(self.attrs),
+                      var_attrs=dict(self.var_attrs), dtype=self.dtype, device=self.device)
+
+    def merge(self, other, path=None, **kwargs):
+        """The variables of two cutouts on the same coordinates, this one's
+        first; in memory on this cutout's device."""
+        if not isinstance(other, Cutout):
+            raise TypeError(f"can only merge a Cutout, not {type(other).__name__}")
+        g, og = self.grid_desc, other.grid_desc
+        if (len(g.x) != len(og.x) or len(g.y) != len(og.y)
+                or not np.allclose(g.x, og.x) or not np.allclose(g.y, og.y)
+                or len(g.time) != len(og.time) or (g.time != og.time).any()):
+            raise ValueError("cannot merge cutouts with different coordinates; use sel() to "
+                             "align them first")
+        attrs = {**other.attrs, **self.attrs}
+        attrs["module"] = list(dict.fromkeys(list(np.atleast_1d(self.module))
+                                             + list(np.atleast_1d(other.module))))
+        attrs["prepared_features"] = sorted(set(self.attrs.get("prepared_features", []))
+                                            | set(other.attrs.get("prepared_features", [])))
+        return Cutout(path, data={**other.data, **self.data}, grid_desc=self.grid_desc,
+                      attrs=attrs, var_attrs={**other.var_attrs, **self.var_attrs},
+                      dtype=self.dtype, device=self.device)
+
+    def equals(self, other):
+        """Same variables with equal values (NaN equal to NaN) on the same
+        x, y and time."""
+        if not isinstance(other, Cutout) or set(self.data) != set(other.data):
+            return False
+        g, og = self.grid_desc, other.grid_desc
+        return (all(np.array_equal(np.asarray(self.data[k]), np.asarray(other.data[k]),
+                                   equal_nan=True) for k in self.data)
+                and np.array_equal(g.x, og.x) and np.array_equal(g.y, og.y)
+                and np.array_equal(g.time, og.time))
+
+    def __repr__(self):
+        g = self.grid_desc
+        start = np.datetime_as_string(g.time[0], unit="D") if len(g.time) else "?"
+        end = np.datetime_as_string(g.time[-1], unit="D") if len(g.time) else "?"
+        features = sorted({f for _, f in self.prepared_features.index})
+        return (f'<Cutout "{self.name}">\n'
+                f" x = {g.x[0]:.2f} ⟷ {g.x[-1]:.2f}, dx = {g.dx:.2f}\n"
+                f" y = {g.y[0]:.2f} ⟷ {g.y[-1]:.2f}, dy = {g.dy:.2f}\n"
+                f" time = {start} ⟷ {end}, dt = {g.dt}\n"
+                f" module = {self.module}\n"
+                f" prepared_features = {features}")
 
     # ------------------------------------------------ conversion bindings
     convert_and_aggregate = convert.convert_and_aggregate

@@ -85,26 +85,46 @@ Phases, in order; any failure exits non-zero:
      matrix host s, wall s, busy ms, idle share; first 48 h against a CPU
      cutout); ``cutout.hydro`` on a basin forest over the region boxes
      with 500 plants, both given as dicts of columns (wall s; against the
-     CPU over the whole 1440 h); a second registry turbine, smoothed.
+     CPU over the whole 1440 h); a second registry turbine, smoothed;
+ 14. the continental cut through an .atc store under build/ (refused
+     unless the disk has twice the store's size free): ``to_file`` (wall
+     s, GB/s, the sha256 timed apart), ``Cutout(path)`` (memory maps) and
+     ``read_store(verify=True)`` timed; phase 10's calls from the
+     reopened store, resident, streamed raw and int16, then streamed raw
+     again after fsync and POSIX_FADV_DONTNEED of every file (the share of
+     its pages in the page cache printed before and after), each with
+     phase 10's split and idle share; every result equal to the in-memory
+     cut's bit for bit; ``sel`` of a 64 x 64 box and ``merge`` of its wind
+     and other variables ``equals`` the cut's arrays; the store removed.
 Then one JSON line of the converters, one of kernels and, last, the
 result line.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import gc
 import json
+import mmap
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from atlite_tpu_torch import Cutout, aggregate, build_inputs, entry, from_jax_inputs, native
+from atlite_tpu_torch import profiling
 from atlite_tpu_torch import convert as conv
 from atlite_tpu_torch.convert import convert_wind
+from atlite_tpu_torch.core import store
 from atlite_tpu_torch.entry import HUB_HEIGHT, PANEL
 from atlite_tpu_torch.ops import _build
 from atlite_tpu_torch.ops import bsr_spmm as bsr_ops
@@ -370,20 +390,77 @@ def continental_inputs():
     return cut, matrix
 
 
-def continental_path(cut, matrix, card):
-    """Phase 10: wind and PV resident, streamed raw and streamed packed;
-    returns the resident wind capacity factors of the first CHUNK hours
-    as a (CHUNK, C) tensor on the card."""
-    T, (Y, X) = len(cut.grid_desc.time), cut.shape
-    C, B = Y * X, matrix.shape[0]
-    runs = {
+def timed_mode(name, mode, fn, kw, shape, windows, band_flops):
+    """One continental call ``fn(**kw)`` under torch.profiler: its wall s,
+    cell-hours/s, idle share and, streamed, the per-chunk split (pack and
+    pinned-buffer ms on the host, copy, convert and banded aggregation on
+    the card); raises unless the (B, T) result is finite and every chunk
+    was staged through the copy stream.  Returns {"vals", "wall", "idle",
+    "chunks"}."""
+    B, T, C = shape
+    wind_pv_bus_megakernel.launches = bsr_spmm_kernel.launches = 0
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        res = fn(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    vals = np.asarray(res.values)
+    if vals.shape != (B, T) or not np.isfinite(vals).all():
+        raise RuntimeError(f"{name} {mode}: {vals.shape}, finite "
+                           f"{np.isfinite(vals).all()}, want ({B}, {T})")
+    # staged: every chunk ran each step's range (host records, always
+    # kept) and packed on the host, and the trace holds a pinned
+    # transfer, which only the streamer's side stream makes
+    chunks, n_copies = chunk_steps(prof)
+    staged = list(chunks) == windows and n_copies >= 1 and all(
+        {"pack", "copy", "convert", "aggregate"} <= set(c) and c["pack"] > 0
+        for c in chunks.values())
+    if kw.get("time_chunk") and not staged:
+        raise RuntimeError(f"{name} {mode}: chunks not staged through the card's "
+                           f"copy stream ({n_copies} pinned transfers): {chunks}")
+    lost = sum(c[k] == 0 for c in chunks.values() for k in ("copy", "convert", "aggregate"))
+    idle = device_idle(prof, wall * 1e3)
+    log(f"  {name} {mode}: {wall:.3f} s = {T * C / wall:.4g} cell-hours/s "
+        f"(host work included{', under torch.profiler' if idle else ''}); "
+        f"kernel launches {wind_pv_bus_megakernel.launches + bsr_spmm_kernel.launches}"
+        + ("" if idle is None else
+           f"; device busy {idle[0]:.1f} ms, idle share {idle[1]:.3f}")
+        + (f"; {n_copies} pinned transfers in the trace, {lost} step(s) of the "
+           "split not in it" if kw.get("time_chunk") else ""))
+    for (c0, c1), c in chunks.items():
+        pin = c.get("pin", 0.0)
+        log(f"    chunk [{c0}, {c1}): pack {c['pack'] - pin:.1f} ms"
+            + (f" (and {pin:.1f} ms allocating the pinned buffers)" if pin else "")
+            + f", copy {step_ms(c['copy'], '.2f')}, convert "
+            f"{step_ms(c['convert'], '.2f')}, banded aggregation "
+            f"{step_ms(c['aggregate'], '.3f')} (bound "
+            f"{band_flops / FP32_FLOPS * 1e3:.3f} ms: {band_flops / 1e9:.2f} GFLOP)")
+    return {"vals": vals, "wall": wall, "idle": idle, "chunks": chunks}
+
+
+CONT_MODES = {"resident": dict(time_chunk=0), "streamed raw": dict(time_chunk=CHUNK),
+              "streamed int16": dict(time_chunk=CHUNK, stream_pack="int16")}
+
+
+def continental_runs(cut, matrix):
+    """Phase 10's two calls, wind and PV with the matrix, on a cutout."""
+    return {
         "wind": lambda **k: cut.wind(turbine="Vestas_V112_3MW", matrix=matrix,
                                      aggregate_time=None, **k),
         "pv": lambda **k: cut.pv(panel="CSi", orientation="latitude_optimal", matrix=matrix,
                                  aggregate_time=None, **k),
     }
-    modes = {"resident": dict(time_chunk=0), "streamed raw": dict(time_chunk=CHUNK),
-             "streamed int16": dict(time_chunk=CHUNK, stream_pack="int16")}
+
+
+def continental_path(cut, matrix, card):
+    """Phase 10: wind and PV resident, streamed raw and streamed packed;
+    returns the resident wind capacity factors of the first CHUNK hours
+    as a (CHUNK, C) tensor on the card, and the (B, T) results by (name,
+    mode)."""
+    T, (Y, X) = len(cut.grid_desc.time), cut.shape
+    C, B = Y * X, matrix.shape[0]
+    runs, modes = continental_runs(cut, matrix), CONT_MODES
     log(f"continental path on {card}:")
     t0 = time.perf_counter()
     fields = cut.fields()
@@ -409,45 +486,8 @@ def continental_path(cut, matrix, card):
     out = {}
     for mode, kw in modes.items():
         for name, fn in runs.items():
-            wind_pv_bus_megakernel.launches = bsr_spmm_kernel.launches = 0
-            torch.cuda.synchronize()
-            with profiled() as prof:
-                t0 = time.perf_counter()
-                res = fn(**kw)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            vals = np.asarray(res.values)
-            if vals.shape != (B, T) or not np.isfinite(vals).all():
-                raise RuntimeError(f"{name} {mode}: {vals.shape}, finite "
-                                   f"{np.isfinite(vals).all()}, want ({B}, {T})")
-            # staged: every chunk ran each step's range (host records, always
-            # kept) and packed on the host, and the trace holds a pinned
-            # transfer, which only the streamer's side stream makes
-            chunks, n_copies = chunk_steps(prof)
-            staged = list(chunks) == windows and n_copies >= 1 and all(
-                {"pack", "copy", "convert", "aggregate"} <= set(c) and c["pack"] > 0
-                for c in chunks.values())
-            if kw["time_chunk"] and not staged:
-                raise RuntimeError(f"{name} {mode}: chunks not staged through the card's "
-                                   f"copy stream ({n_copies} pinned transfers): {chunks}")
-            lost = sum(c[k] == 0 for c in chunks.values() for k in ("copy", "convert", "aggregate"))
-            idle = device_idle(prof, wall * 1e3)
-            log(f"  {name} {mode}: {wall:.3f} s = {T * C / wall:.4g} cell-hours/s "
-                f"(host work included{', under torch.profiler' if idle else ''}); "
-                f"kernel launches {wind_pv_bus_megakernel.launches + bsr_spmm_kernel.launches}"
-                + ("" if idle is None else
-                   f"; device busy {idle[0]:.1f} ms, idle share {idle[1]:.3f}")
-                + (f"; {n_copies} pinned transfers in the trace, {lost} step(s) of the "
-                   "split not in it" if kw["time_chunk"] else ""))
-            for (c0, c1), c in chunks.items():
-                pin = c.get("pin", 0.0)
-                log(f"    chunk [{c0}, {c1}): pack {c['pack'] - pin:.1f} ms"
-                    + (f" (and {pin:.1f} ms allocating the pinned buffers)" if pin else "")
-                    + f", copy {step_ms(c['copy'], '.2f')}, convert "
-                    f"{step_ms(c['convert'], '.2f')}, banded aggregation "
-                    f"{step_ms(c['aggregate'], '.3f')} (bound "
-                    f"{band_flops / FP32_FLOPS * 1e3:.3f} ms: {band_flops / 1e9:.2f} GFLOP)")
-            out[name, mode] = vals
+            out[name, mode] = timed_mode(name, mode, fn, kw, (B, T, C), windows,
+                                         band_flops)["vals"]
 
     for name in runs:
         res = out[name, "resident"]
@@ -488,7 +528,7 @@ def continental_path(cut, matrix, card):
 
     turbine = get_windturbineconfig("Vestas_V112_3MW", add_cutout_windspeed=False)
     cf = convert_wind(cut, turbine).values[:CHUNK].reshape(CHUNK, C).contiguous()
-    return cf
+    return cf, out
 
 
 def bsr_phase(matrix, cf, card, ptxas):
@@ -1153,6 +1193,207 @@ def gis_phase(cut, card, regions_shape=CONT_REGIONS, n_lines=N_LINES, n_plants=N
     return entries
 
 
+# phase 14: the continental cut through an .atc store, written inside the
+# checkout (build/ is ignored by git) and removed at the end
+STORE_DIR = Path(__file__).resolve().parent / "build" / "store_phase"
+SUB_BOX = 64  # cells a side of the sel/merge check
+
+
+def cached_share(files):
+    """Share of the files' pages in the page cache (mincore on a fresh
+    read-only mapping of each)."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_long)
+    libc.munmap.argtypes = (ctypes.c_void_p, ctypes.c_size_t)
+    libc.mincore.argtypes = (ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_ubyte))
+    page = os.sysconf("SC_PAGE_SIZE")
+    pages = cached = 0
+    for fn in files:
+        size = os.path.getsize(fn)
+        n = (size + page - 1) // page
+        with open(fn, "rb") as f:
+            addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED, f.fileno(), 0)
+            if addr in (None, ctypes.c_void_p(-1).value):
+                raise OSError(ctypes.get_errno(), f"mmap of {fn} failed")
+            vec = (ctypes.c_ubyte * n)()
+            try:
+                if libc.mincore(addr, size, vec) != 0:
+                    raise OSError(ctypes.get_errno(), f"mincore of {fn} failed")
+            finally:
+                libc.munmap(addr, size)
+        pages += n
+        cached += sum(b & 1 for b in vec)
+    return cached / pages
+
+
+def fs_type(path):
+    """The type of the file system that holds ``path`` (/proc/self/mounts)."""
+    best, kind = "", "unknown"
+    with open("/proc/self/mounts", encoding="utf-8") as f:
+        for line in f:
+            _, mount, fstype = line.split()[:3]
+            if str(path).startswith(mount) and len(mount) > len(best):
+                best, kind = mount, fstype
+    return kind
+
+
+def drop_from_cache(files):
+    """Flush each file and drop its pages from the page cache
+    (POSIX_FADV_DONTNEED; pages still mapped by a process stay)."""
+    for fn in files:
+        fd = os.open(fn, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def store_phase(cut, matrix, card, in_memory):
+    """Phase 14: write the continental cut to an .atc store, reopen it
+    (memory maps) and run phase 10's calls from it; every result must
+    equal the in-memory cut's bit for bit.  Returns its entries of the
+    converters line."""
+    T, (Y, X) = len(cut.grid_desc.time), cut.shape
+    C, B = Y * X, matrix.shape[0]
+    nb, W = banded_width(matrix)
+    band_flops = 2 * nb * 128 * W * CHUNK
+    windows = [(t, t + CHUNK) for t in range(0, T, CHUNK)]
+    STORE_DIR.mkdir(parents=True, exist_ok=True)
+    nbytes = sum(np.asarray(a).nbytes for a in cut.data.values())
+    free = shutil.disk_usage(STORE_DIR).free
+    log(f"store phase on {card}: {len(cut.data)} variables, {nbytes / 1e9:.3f} GB of arrays; "
+        f"{free / 1e9:.1f} GB free in {STORE_DIR} ({fs_type(STORE_DIR)})")
+    if free < 2 * nbytes:
+        raise RuntimeError(f"{free / 1e9:.1f} GB free, the store needs twice its "
+                           f"{nbytes / 1e9:.3f} GB")
+    tmp = Path(tempfile.mkdtemp(dir=STORE_DIR))
+    path = tmp / "europe.atc"
+    entries = []
+    real_digest = store._file_digest
+    try:
+        # 1. write, the sha256 of each file timed apart
+        hash_s = []
+
+        def timed_digest(fn):
+            t0 = time.perf_counter()
+            digest = real_digest(fn)
+            hash_s.append(time.perf_counter() - t0)
+            return digest
+
+        store._file_digest = timed_digest
+        t0 = time.perf_counter()
+        cut.to_file(path)
+        write_s = time.perf_counter() - t0
+        store._file_digest = real_digest
+        hash_s = sum(hash_s)
+        files = sorted(path.glob("*.npy"))
+        size = sum(f.stat().st_size for f in files)
+        log(f"  to_file: {write_s:.2f} s for {size / 1e9:.3f} GB in {len(files)} files = "
+            f"{size / write_s / 1e9:.2f} GB/s (into the page cache: nothing is flushed), of "
+            f"which sha256 {hash_s:.2f} s ({hash_s / write_s:.1%}, "
+            f"{size / hash_s / 1e9:.2f} GB/s)")
+        # 2. reopen
+        t0 = time.perf_counter()
+        reopened = Cutout(path)
+        open_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.read_store(path, verify=True)
+        verify_s = time.perf_counter() - t0
+        if not all(isinstance(a, np.memmap) for a in reopened.data.values()):
+            raise RuntimeError("the reopened cutout does not hold memory maps")
+        log(f"  Cutout(path): {open_s * 1e3:.1f} ms (memory maps); read_store(verify=True): "
+            f"{verify_s:.2f} s = {size / verify_s / 1e9:.2f} GB/s (sha256 of every file, warm)")
+        entries.append({"name": "store", "GB": size / 1e9, "write_s": write_s,
+                        "hash_s": hash_s, "reopen_s": open_s, "verify_s": verify_s,
+                        "free_GB": free / 1e9, "fs": fs_type(STORE_DIR)})
+        del reopened
+
+        def from_store(modes, suffix="", pinned=None):
+            """Phase 10's calls in ``modes`` from a fresh reopen of the store,
+            by (name, mode + suffix); set-up first on a cutout without
+            ``pinned`` buffers: a streamed raw PV call sizes them, and the
+            resident fields are staged from the memory maps.  Returns the
+            results and the pinned buffers; nothing else stays mapped."""
+            c = Cutout(path)
+            c._pinned = pinned
+            runs = continental_runs(c, matrix)
+            if pinned is None:
+                runs["pv"](**CONT_MODES["streamed raw"])
+                t0 = time.perf_counter()
+                c.fields()
+                torch.cuda.synchronize()
+                log(f"  set-up: pinned buffers; resident staging from the memory maps "
+                    f"{time.perf_counter() - t0:.2f} s")
+            return {(name, mode + suffix): timed_mode(name, f"{mode}{suffix} (store)", fn,
+                                                      CONT_MODES[mode], (B, T, C), windows,
+                                                      band_flops)
+                    for mode in modes for name, fn in runs.items()}, c._pinned
+
+        # 3. the runs from the reopened store, warm; then cold: the maps
+        # gone, the files flushed and dropped from the page cache
+        results, pinned = from_store(list(CONT_MODES))
+        gc.collect()
+        warm_share = cached_share(files)
+        t0 = time.perf_counter()
+        drop_from_cache(files)
+        cold_share = cached_share(files)
+        log(f"  page cache: {warm_share:.1%} of the store's pages before, "
+            f"{cold_share:.1%} after fsync + POSIX_FADV_DONTNEED "
+            f"({time.perf_counter() - t0:.2f} s)"
+            + (": the file system keeps them, so the cold runs read a warm cache"
+               if cold_share > 0.5 else ""))
+        entries[0].update(cached_before=warm_share, cached_after_drop=cold_share)
+        results.update(from_store(["streamed raw"], " cold", pinned)[0])
+        log(f"  page cache after the cold runs: {cached_share(files):.1%}")
+        # 4. checks: the same float32 bytes through the same code
+        for (name, mode), r in results.items():
+            want = in_memory[name, mode.replace(" cold", "")]
+            if not np.array_equal(r["vals"], want):
+                diff = np.abs(r["vals"] - want)
+                raise RuntimeError(f"{name} {mode} from the store differs from the in-memory "
+                                   f"cut: max {diff.max()}")
+            chunks = r["chunks"].values()
+            entries.append({"name": f"store {name}", "mode": mode, "wall_s": r["wall"],
+                            "cell_hours_per_s": T * C / r["wall"],
+                            "busy_ms": r["idle"] and r["idle"][0],
+                            "idle": r["idle"] and r["idle"][1],
+                            "pack_ms": [c["pack"] - c.get("pin", 0.0) for c in chunks],
+                            "copy_ms": [c.get("copy", 0.0) for c in chunks]})
+        rate = profiling.Throughput()
+        for r in results.values():
+            rate.add(T * C, r["wall"])
+        log(f"  checks: {len(results)} results from the store equal the in-memory cut's bit "
+            f"for bit; together {rate.cell_hours / 1e9:.2f}G cell-hours in {rate.seconds:.2f} s "
+            f"= {rate.rate:.4g} cell-hours/s")
+        # 5. sel of a sub-box, merge of two feature sets
+        sub_x, sub_y = cut.grid_desc.x[:SUB_BOX], cut.grid_desc.y[-SUB_BOX:]
+        box_cut = Cutout(path).sel(x=slice(sub_x[0], sub_x[-1]), y=slice(sub_y[0], sub_y[-1]))
+        g = cut.grid_desc
+        expected = Cutout(
+            data={n: (np.asarray(a)[:, -SUB_BOX:, :SUB_BOX] if np.ndim(a) == 3 else
+                      np.asarray(a)[-SUB_BOX:, :SUB_BOX]) for n, a in cut.data.items()},
+            grid_desc=dataclasses.replace(g, x=sub_x, y=sub_y), attrs=cut.attrs,
+            var_attrs=cut.var_attrs)
+        wind_vars = [n for n in box_cut.data if box_cut.var_attrs[n].get("feature") == "wind"]
+        parts = [sub_cutout(box_cut, names, device=box_cut.device)
+                 for names in (wind_vars, [n for n in box_cut.data if n not in wind_vars])]
+        merged = parts[0].merge(parts[1])
+        if box_cut.shape != (SUB_BOX, SUB_BOX) or not box_cut.equals(expected) \
+                or not merged.equals(expected):
+            raise RuntimeError(f"sel/merge: shape {box_cut.shape}, sel equals "
+                               f"{box_cut.equals(expected)}, merge equals "
+                               f"{merged.equals(expected)}")
+        log(f"  sel of a {SUB_BOX} x {SUB_BOX} box and merge of its wind and other variables "
+            "equal the cut's arrays")
+    finally:
+        store._file_digest = real_digest
+        shutil.rmtree(tmp, ignore_errors=True)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1342,7 +1583,7 @@ def main():
     del wide, k_w, k_p, r_w, r_p
 
     cut, matrix = continental_inputs()
-    cf = continental_path(cut, matrix, card)
+    cf, in_memory = continental_path(cut, matrix, card)
     bsr_entry = bsr_phase(matrix, cf, card, ptxas)
     del cf
     t0 = time.perf_counter()
@@ -1352,6 +1593,9 @@ def main():
     t0 = time.perf_counter()
     converters += gis_phase(cut, card)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    converters += store_phase(cut, matrix, card, in_memory)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"converters": converters}), flush=True)
 
     kernels = [{

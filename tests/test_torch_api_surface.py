@@ -36,17 +36,11 @@ torch.set_num_threads(1)
 PORT_ONLY = {"convert_line_rating": {"device"}}
 # members of the JAX classes that later slices port (ROADMAP queue 1)
 DEFERRED_CUTOUT = {
-    "availabilitymatrix",                                  # item 5
-    "available_features", "bounds", "coords", "dt", "dx", "dy", "equals", "extent", "grid",
-    "merge", "name", "prepared", "prepared_features", "sel", "to_file", "transform",
-    "transform_r",                                         # item 4
-    "shard", "unshard",                                    # item 7
-    "to_netcdf",                                           # item 8
+    "availabilitymatrix",                                  # item 2
+    "shard", "unshard",                                    # item 4
+    "to_netcdf",                                           # item 5
 }
-DEFERRED_DATAARRAY = {
-    "assign_attrs", "clip", "dtype", "fillna", "get_axis_num", "isel", "max", "min", "ndim",
-    "plot", "quantile", "rename", "sel", "to_pandas", "transpose", "where",  # item 4
-}
+DEFERRED_DATAARRAY = set()
 PORT_ONLY_MEMBERS = {"Cutout": {"torch_dtype"}, "DataArray": set()}
 
 

@@ -183,7 +183,9 @@ def test_cutout_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         Cutout(**KW)
     with pytest.raises(NotImplementedError, match="not ported"):
-        Cutout("europe.atc", device="cpu")
+        Cutout("europe.nc", device="cpu")
+    with pytest.raises(TypeError, match="must be specified"):
+        Cutout("europe.atc", device="cpu")  # no store there, nor the arguments to make one
     with pytest.raises(ValueError, match="unknown dataset"):
         Cutout(device="cpu", **{**KW, "module": "era5"})
     with pytest.raises(TypeError, match="grid_desc"):
