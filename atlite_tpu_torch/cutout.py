@@ -37,6 +37,7 @@ from atlite_tpu_torch.dataarray import DataArray
 from atlite_tpu_torch.datasets import modules as datamodules
 from atlite_tpu_torch.entry import resolve_device
 from atlite_tpu_torch.gis.crs import transform_points
+from atlite_tpu_torch.gis.exclusion import compute_availabilitymatrix
 from atlite_tpu_torch.gis.geometry import box
 from atlite_tpu_torch.gis.matrix import compute_indicatormatrix, compute_intersectionmatrix
 from atlite_tpu_torch.table import Table
@@ -482,6 +483,15 @@ class Cutout:
         """(shapes, cells) sparse 0/1 matrix of the cells each shape
         touches (``gis.compute_intersectionmatrix``)."""
         return compute_intersectionmatrix(self.grid_desc, shapes, self.crs, shapes_crs)
+
+    def availabilitymatrix(self, shapes, excluder, nprocesses=None,
+                           disable_progressbar=True, shapes_crs=4326,
+                           backend="auto"):
+        """(shape, y, x) DataArray of the eligible share of each cell per
+        shape (``gis.compute_availabilitymatrix``): on a cutout on a CUDA
+        card the batched device path, on a CPU cutout the host path."""
+        return compute_availabilitymatrix(self, shapes, excluder, nprocesses,
+                                          disable_progressbar, shapes_crs, backend)
 
     def area(self, crs=None):
         """Cell areas as a (y, x) DataArray, in the units of ``crs``

@@ -4,7 +4,7 @@
 atlite delegates every CRS transform to pyproj/PROJ (a C library; its
 gis.py:87-101).  This module implements the projections the pipelines use
 as closed-form array math, numpy on the host, or any namespace ``xp``
-with numpy's function names:
+with numpy's function names (``torch`` through ``TorchNamespace``):
 
 - EPSG:4326/4258  geographic lon/lat (degrees),
 - EPSG:3035  ETRS89-extended / LAEA Europe (the exclusion-container
@@ -36,6 +36,7 @@ from __future__ import annotations
 from contextlib import nullcontext
 
 import numpy as np
+import torch
 
 # GRS80 ellipsoid (ETRS89); WGS84 differs by <1e-9 in flattening
 A = 6378137.0
@@ -928,10 +929,33 @@ def transform_points(x, y, src, dst):
     return np.asarray(x, dtype=float), np.asarray(y, dtype=float)
 
 
+class TorchNamespace:
+    """numpy's names, as the projections call them, over torch tensors on
+    one device: ``radians``/``degrees`` are torch's ``deg2rad``/``rad2deg``,
+    and ``asarray`` puts arrays on the device, ``float`` meaning float32 (the
+    device path computes in float32, as the JAX package does on its chip
+    with x64 off).  Every other name is torch's own."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    radians = staticmethod(torch.deg2rad)
+    degrees = staticmethod(torch.rad2deg)
+
+    def asarray(self, a, dtype=None):
+        dtype = torch.float32 if dtype is float else dtype
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+
 def transform_points_xp(x, y, src, dst, xp):
     """transform_points with an explicit array namespace ``xp`` (the
-    projections are elementwise closed forms); kept for a device path of
-    the availability matrix."""
+    projections are elementwise closed forms): numpy, a namespace with
+    numpy's function names, or ``torch``, which runs them on the device of
+    ``x`` (``TorchNamespace``).  The device path of the availability matrix
+    maps its pixel centres so."""
     src, dst = normalize_crs(src), normalize_crs(dst)
     if src == dst:
         return x, y
@@ -939,6 +963,8 @@ def transform_points_xp(x, y, src, dst, xp):
         raise NotImplementedError(
             f"CRS transform {src} -> {dst} has no native closed form for "
             "the device path (host paths fall back to the system PROJ)")
+    if xp is torch:
+        xp = TorchNamespace(x.device if isinstance(x, torch.Tensor) else y.device)
     if _INVERSE[src] is not None:
         x, y = _INVERSE[src](x, y, xp)
     if _FORWARD[dst] is not None:

@@ -1,7 +1,7 @@
 """ctypes bindings of the C++ host geometry engine (counterpart of
 ``atlite_tpu/native/__init__.py``): ``polygon_cell_areas``, the cell
-areas of the indicator matrix.  (``geometry.cpp`` also holds
-``points_in_rings``, which the rasterisation of a later slice binds.)
+areas of the indicator matrix, and ``points_in_polygon`` (the engine's
+``points_in_rings``), the even-odd pixel test of ``gis.raster.geometry_mask``.
 
 ``geometry.cpp`` is compiled with ``g++ -O3 -fPIC -shared -std=c++17`` at
 first use into ``build/native/libatlite_geom_<hash>.so`` at the root of the
@@ -82,6 +82,9 @@ def get_lib():
         dp, dp, ip, ctypes.c_int64, ctypes.c_double, ctypes.c_double, ctypes.c_int64,
         ctypes.c_double, ctypes.c_double, ctypes.c_int64, dp]
     lib.polygon_cell_areas.restype = None
+    lib.points_in_rings.argtypes = [dp, dp, ip, ctypes.c_int64, dp, dp, ctypes.c_int64,
+                                    ctypes.POINTER(ctypes.c_uint8)]
+    lib.points_in_rings.restype = None
     _lib = lib
     return _lib
 
@@ -117,3 +120,24 @@ def polygon_cell_areas(polygon, x0, dx, nx, y0, dy, ny, out=None):
         ctypes.c_double(y0), ctypes.c_double(dy), ny, _dp(out))
     return out
 
+
+
+def points_in_polygon(polygon, px, py, out=None):
+    """Even-odd point-in-polygon of one Polygon (shell and holes) over flat
+    point arrays, XORed into the uint8 ``out`` when given; None without the
+    engine."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    xs, ys, sizes = _rings_arrays(polygon)
+    px = np.ascontiguousarray(px, dtype=np.float64)
+    py = np.ascontiguousarray(py, dtype=np.float64)
+    if out is None:
+        out = np.zeros(px.shape, dtype=np.uint8)
+    if out.shape != px.shape or out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous uint8 array of shape {px.shape}")
+    lib.points_in_rings(
+        _dp(xs), _dp(ys), sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        len(sizes), _dp(px), _dp(py), px.size,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out

@@ -95,9 +95,27 @@ Phases, in order; any failure exits non-zero:
      its pages in the page cache printed before and after), each with
      phase 10's split and idle share; every result equal to the in-memory
      cut's bit for bit; ``sel`` of a 64 x 64 box and ``merge`` of its wind
-     and other variables ``equals`` the cut's arrays; the store removed.
-Then one JSON line of the converters, one of kernels and, last, the
-result line.
+     and other variables ``equals`` the cut's arrays; the store removed;
+ 15. availability (land eligibility) through ``cutout.availabilitymatrix``
+     on the card (the device path of gis/kernels.py), each case cold (a
+     fresh excluder: host mask build per row block on a worker thread,
+     packed upload, unpacked on the card) and warm (the mask cached on the
+     card), with its wall s, fine-pixel-shape Mpix/s, device busy ms and
+     idle share (torch.profiler), the host's mask build ms a block, the
+     blocks redone on the host, peak device memory, the fine mask's bytes
+     and the bound (an edge test per shape, edge and pixel, or the mask's
+     and partial sums' bytes); the first 4 shapes against the host path
+     within 2e-2: (a) bench.py's 12 boxes over a 0.01 deg land-use raster
+     in EPSG:4326 (the separable downsample), (b) the same boxes over a
+     100 m EPSG:3035 raster with a misaligned origin (a 32.5 Mpix
+     lattice, the cross-CRS counts; no block may be redone on the host), (c)
+     bench_continental.py's stage 5 on the continental cut: 40 boxes of
+     3 x 3 deg over a 100 m EPSG:3035 raster (~806 Mpix); then ``regrid``
+     of a week of the continental wind field, held on the card, onto 0.5
+     and 0.125 deg (average, bilinear), host s, bit for bit the same call
+     on a CPU cutout's field.
+Then one JSON line of the converters, one of availability, one of
+kernels and, last, the result line.
 """
 
 from __future__ import annotations
@@ -106,6 +124,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import logging
 import mmap
 import os
 import re
@@ -119,12 +138,24 @@ from pathlib import Path
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.autograd import DeviceType
 
-from atlite_tpu_torch import Cutout, aggregate, build_inputs, entry, from_jax_inputs, native
+from atlite_tpu_torch import (
+    Cutout,
+    DataArray,
+    ExclusionContainer,
+    aggregate,
+    build_inputs,
+    entry,
+    from_jax_inputs,
+    native,
+    regrid,
+)
 from atlite_tpu_torch import profiling
 from atlite_tpu_torch import convert as conv
 from atlite_tpu_torch.convert import convert_wind
 from atlite_tpu_torch.core import store
+from atlite_tpu_torch.core.grid import Affine
 from atlite_tpu_torch.entry import HUB_HEIGHT, PANEL
 from atlite_tpu_torch.ops import _build
 from atlite_tpu_torch.ops import bsr_spmm as bsr_ops
@@ -141,7 +172,10 @@ from atlite_tpu_torch.ops.megakernel import (
     wind_pv_bus_megakernel,
     wind_pv_bus_plain,
 )
+from atlite_tpu_torch.gis import kernels as avail_kernels
+from atlite_tpu_torch.gis.crs import transform_points
 from atlite_tpu_torch.gis.geometry import LineString, box
+from atlite_tpu_torch.gis.raster import Raster
 from atlite_tpu_torch.physics import hydro as hydro_physics
 from atlite_tpu_torch.physics import line_rating as line_rating_physics
 from atlite_tpu_torch.resource import get_windturbineconfig
@@ -1394,6 +1428,246 @@ def store_phase(cut, matrix, card, in_memory):
     return entries
 
 
+# phase 15: availability (land eligibility) on the card, bench.py's two
+# workloads and bench_continental.py's stage 5, each against the host path
+AVAIL_BOUNDS = (-4, 56, 1.5, 62)
+AVAIL_TOL = 2e-2            # device against host, as bench.py:106-112
+AVAIL_RES_M = 100.0         # bench_continental.py's continental lattice
+N_AVAIL_SHAPES = 40
+AVAIL_HOST_SHAPES = 4
+REGRID_HOURS = 168          # a week of the continental wind field
+MASK_RANGE = re.compile(r"mask (\d+):(\d+)$")  # the cold build's ranges (gis/kernels.py)
+REDO_MESSAGE = "cross-CRS availability: row window missed"
+
+
+# the wrappers around the name of what a PyTorch kernel computes
+KERNEL_WRAPPERS = re.compile(r"^void |at::native::|\(anonymous namespace\)::|at::cuda::|"
+                             r"(vectorized_|unrolled_)?elementwise_kernel<\d+, (\d+, )?|"
+                             r"gpu_kernel_impl(_nocast)?<")
+
+
+def kernel_name(name):
+    """A profiler kernel name without PyTorch's wrappers, 60 characters."""
+    return KERNEL_WRAPPERS.sub("", name)[:60]
+
+
+class RedoCounter(logging.Handler):
+    """Counts the blocks the device path redid on the host."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.n = 0
+
+    def emit(self, record):
+        self.n += record.getMessage().startswith(REDO_MESSAGE)
+
+
+def landuse_3035(lon, lat, res, seed=0):
+    """bench.py's and bench_continental.py's land-use raster: codes 1-5 at
+    ``res`` m in EPSG:3035 over the points' cover plus 5 km, its origin
+    off the res lattice by 37 m (so the mask build samples it by the
+    separable nearest path, not by slices)."""
+    ex, ey = transform_points(np.asarray(lon, float), np.asarray(lat, float), 4326, 3035)
+    rx, ry = int((ex.max() - ex.min() + 1e4) / res) + 2, int((ey.max() - ey.min() + 1e4) / res) + 2
+    data = np.random.default_rng(seed).integers(1, 6, (ry, rx), dtype=np.uint8)
+    return Raster(data, Affine(res, 0, ex.min() - 5e3 - 37.0, 0, -res, ey.max() + 5e3 + 37.0),
+                  3035, 255)
+
+
+def excluder_of(raster, crs, res):
+    def make():
+        exc = ExclusionContainer(crs, res=res)
+        exc.add_raster(raster, codes=[4, 5])
+        return exc
+    return make
+
+
+def availability_case(name, cutout, shapes, make_exc, card):
+    """One availability workload on the card through
+    ``cutout.availabilitymatrix``: cold (a fresh excluder: host mask build
+    on the worker thread, packed upload) and warm (the mask cached on the
+    card) wall s, fine-pixel-shape Mpix/s, busy ms and idle share of a warm
+    and of a cold call (torch.profiler), the host's mask build ms a block
+    (its ranges in the cold trace), the blocks redone on the host, peak
+    device memory and the fine mask's bytes; the first shapes against the
+    host path within AVAIL_TOL.  Returns its entry of the availability
+    line."""
+    S, (NY, NX) = len(shapes), cutout.shape
+    counter = RedoCounter()
+    logging.getLogger(avail_kernels.__name__).addHandler(counter)
+    try:
+        exc = make_exc()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier phases' tensors
+        t0 = time.perf_counter()
+        out = cutout.availabilitymatrix(shapes, exc)
+        cold_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        dev = out.values
+        if dev.shape != (S, NY, NX) or not np.isfinite(dev).all() or dev.min() < 0 \
+                or dev.max() > 1 + 1e-6:
+            raise RuntimeError(f"{name}: availability {dev.shape}, finite "
+                               f"{np.isfinite(dev).all()}, range {dev.min()}..{dev.max()}")
+        parts = exc._fine_mask_cache[1]
+        if next(iter(parts.values())).device.type != "cuda":
+            raise RuntimeError(f"{name}: the fine mask is not on the card")
+        P = sum(p.numel() for p in parts.values())
+        mask_mb = sum(p.numel() * p.element_size() for p in parts.values()) / 1e6
+        nx = next(iter(parts.values())).shape[1]
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            again = cutout.availabilitymatrix(shapes, exc).values
+            warm.append(time.perf_counter() - t0)
+            if not np.array_equal(again, dev):
+                raise RuntimeError(f"{name}: a warm call gave other values than the cold one")
+        warm_s = min(warm)
+        torch.cuda.synchronize()
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            cutout.availabilitymatrix(shapes, exc)
+            torch.cuda.synchronize()
+            warm_wall = time.perf_counter() - t0
+        warm_idle = device_idle(prof, warm_wall * 1e3)
+        by_kernel = sorted(((kernel_name(e.key), e.device_time_total / 1e3)
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
+                           key=lambda kv: -kv[1])
+        torch.cuda.synchronize()
+        fresh = make_exc()
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            cutout.availabilitymatrix(shapes, fresh)
+            torch.cuda.synchronize()
+            cold_wall = time.perf_counter() - t0
+        cold_idle = device_idle(prof, cold_wall * 1e3)
+        build_ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                    if MASK_RANGE.match(e.name)]
+        del fresh, prof
+        exc_h = make_exc()
+        t0 = time.perf_counter()
+        host = cutout.availabilitymatrix(shapes[:AVAIL_HOST_SHAPES], exc_h, backend="host").values
+        host_s = time.perf_counter() - t0
+        diff = float(np.abs(dev[:AVAIL_HOST_SHAPES] - host).max())
+        if not diff < AVAIL_TOL:
+            raise RuntimeError(f"{name}: the card's availability is {diff} from the host path's")
+    finally:
+        logging.getLogger(avail_kernels.__name__).removeHandler(counter)
+    redone = counter.n
+    E = avail_kernels.shapes_to_edges(shapes)[0].shape[1]
+    n_ops, n_bytes = S * E * P, P + 4 * S * NY * NX
+    ops_ms, bytes_ms = n_ops / FP32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"  {name}: {S} shapes of {E} edges on a {P // nx} x {nx} fine lattice ({P / 1e6:.1f} "
+        f"Mpix) onto {NY} x {NX} cells, {len(parts)} row blocks; fine mask {mask_mb:.1f} MB on "
+        f"the card, peak device memory of the cold call {peak_gb:.2f} GB above what earlier "
+        f"phases hold")
+    log(f"    cold {cold_s:.3f} s, warm {warm_s:.3f} s (runs {', '.join(f'{w:.3f}' for w in warm)}) "
+        f"= {S * P / warm_s / 1e6:.1f} Mpix-shapes/s; warm under the profiler {warm_wall:.3f} s, "
+        f"{trace_note(warm_idle)}; cold under the profiler {cold_wall:.3f} s, "
+        f"{trace_note(cold_idle)}")
+    if by_kernel:
+        log("    warm device time by kernel (torch.profiler): " + "; ".join(
+            f"{ms:.2f} ms {name}" for name, ms in by_kernel[:8]))
+    if build_ms:
+        log(f"    host mask build, {len(build_ms)} blocks: mean {np.mean(build_ms):.2f} ms, max "
+            f"{max(build_ms):.2f} ms, sum {sum(build_ms) / 1e3:.3f} s (worker thread)")
+    else:
+        log("    host mask build a block: not in the trace")
+    busy = None if warm_idle is None else warm_idle[0]
+    log(f"    bound {bound_ms:.4f} ms: {n_ops / 1e9:.2f} G edge tests at 67 TFLOP/s "
+        f"{ops_ms:.4f} ms, {n_bytes / 1e6:.1f} MB of mask and partial sums at 3.35 TB/s "
+        f"{bytes_ms:.4f} ms; warm busy "
+        + ("not measured" if busy is None else f"{busy:.2f} ms = {bound_ms / busy:.1%} of it"))
+    log(f"    {redone} blocks redone on the host; first {AVAIL_HOST_SHAPES} shapes against the "
+        f"host path ({host_s:.2f} s): max abs diff {diff:.3e} (tolerance {AVAIL_TOL}) on {card}")
+    return {"name": name, "shapes": S, "edges": E, "fine_mpix": P / 1e6, "cells": NY * NX,
+            "blocks": len(parts), "cold_s": cold_s, "warm_s": warm_s,
+            "mpix_shapes_per_s": S * P / warm_s / 1e6,
+            "warm_busy_ms": busy, "warm_idle": None if warm_idle is None else warm_idle[1],
+            "cold_busy_ms": None if cold_idle is None else cold_idle[0],
+            "cold_idle": None if cold_idle is None else cold_idle[1],
+            "mask_build_ms_per_block": float(np.mean(build_ms)) if build_ms else None,
+            "redone_blocks": redone, "peak_device_gb": peak_gb, "fine_mask_mb": mask_mb,
+            "warm_kernels_ms": dict(by_kernel[:8]),
+            "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "host_s": host_s, "max_abs_diff_vs_host": diff, "card": card}
+
+
+def regrid_check(cut, card, hours=REGRID_HOURS):
+    """``regrid`` of the continental wind field (first ``hours`` h, held on
+    the card) onto 0.5 and 0.125 deg, average and bilinear, against the
+    same call on the field of a CPU cutout: equal bit for bit, within the
+    field's range.  Returns its entries of the availability line."""
+    g = cut.grid_desc
+    hours = min(hours, len(g.time))
+    cpu = sub_cutout(cut, ["wnd100m"], t1=hours)
+    coords = {"time": g.time[:hours], "y": g.y, "x": g.x}
+    on_card = DataArray(torch.as_tensor(np.asarray(cut.data["wnd100m"][:hours]), device="cuda"),
+                        coords=coords, dims=("time", "y", "x"))
+    on_cpu = DataArray(torch.as_tensor(np.asarray(cpu.data["wnd100m"])), coords=coords,
+                       dims=("time", "y", "x"))
+    lo, hi = float(on_cpu.values.min()), float(on_cpu.values.max())
+    entries = []
+    for step in (0.5, 0.125):
+        dx = np.arange(g.x[0] + step / 2, g.x[-1], step)
+        dy = np.arange(g.y[0] + step / 2, g.y[-1], step)
+        for how in ("average", "bilinear"):
+            t0 = time.perf_counter()
+            got = regrid(on_card, dx, dy, resampling=how)
+            host_s = time.perf_counter() - t0
+            want = regrid(on_cpu, dx, dy, resampling=how)
+            v = got.values
+            if v.shape != (hours, len(dy), len(dx)) or not np.array_equal(v, want.values) \
+                    or not np.isfinite(v).all() or v.min() < lo - 1e-9 or v.max() > hi + 1e-9:
+                raise RuntimeError(f"regrid {how} onto {step} deg: {v.shape}, equal to the CPU "
+                                   f"cutout's {np.array_equal(v, want.values)}")
+            log(f"  regrid {how} of {hours} h x {g.shape[0]} x {g.shape[1]} onto {step} deg "
+                f"({len(dy)} x {len(dx)}): {host_s:.3f} s on the host, bit for bit the CPU "
+                f"cutout's, within the field's range")
+            entries.append({"name": f"regrid {how} {step}", "host_s": host_s,
+                            "shape": list(v.shape), "card": card})
+    return entries
+
+
+def availability_phase(cut, card, res=AVAIL_RES_M):
+    """Phase 15: (a) bench.py's same-CRS workload, (b) its cross-CRS one at
+    100 m, (c) bench_continental.py's stage 5 on the continental cut at
+    ``res`` m; then ``regrid`` of a continental field.  Returns the
+    entries of the availability line."""
+    log(f"availability on {card}:")
+    small = Cutout(module="synthetic", bounds=AVAIL_BOUNDS, time="2013-01-01")
+    shapes = [box(x, y, x + 1.2, y + 1.3) for x in np.linspace(-4, 0.5, 5)[:4]
+              for y in np.linspace(56, 61, 4)[:3]]
+    landuse = Raster(np.random.default_rng(0).integers(1, 6, (640, 580), dtype=np.uint8),
+                     Affine(0.01, 0, -4.2, 0, -0.01, 62.3), 4326, 255)
+    entries = [availability_case("(a) same CRS, 0.01 deg", small, shapes,
+                                 excluder_of(landuse, 4326, 0.01), card)]
+    x0, y0, x1, y1 = AVAIL_BOUNDS
+    t0 = time.perf_counter()
+    raster = landuse_3035([x0, x0, x1, x1], [y0, y1, y0, y1], 100.0)
+    log(f"  (b) land-use raster {raster.shape[0]} x {raster.shape[1]} at 100 m "
+        f"({time.perf_counter() - t0:.2f} s, set-up)")
+    entries.append(availability_case("(b) EPSG:3035 100 m", small, shapes,
+                                     excluder_of(raster, 3035, 100.0), card))
+    cx0, cx1, cy0, cy1 = CONT_EXTENT
+    t0 = time.perf_counter()
+    raster = landuse_3035([cx0, cx0, cx1, cx1, (cx0 + cx1) / 2], [cy0, cy1, cy0, cy1, cy1], res)
+    log(f"  (c) continental land-use raster {raster.shape[0]} x {raster.shape[1]} at {res:g} m "
+        f"({raster.data.size / 1e6:.0f} Mpix, {time.perf_counter() - t0:.2f} s, set-up)")
+    sx, sy = np.linspace(cx0 + 0.5, cx1 - 3.5, 8), np.linspace(cy0 + 0.5, cy1 - 3.5, 5)
+    cont_shapes = [box(x, y, x + 3.0, y + 3.0) for y in sy for x in sx][:N_AVAIL_SHAPES]
+    entries.append(availability_case(f"(c) continental EPSG:3035 {res:g} m", cut, cont_shapes,
+                                     excluder_of(raster, 3035, res), card))
+    if entries[1]["redone_blocks"]:
+        raise RuntimeError(f"(b): {entries[1]['redone_blocks']} blocks redone on the host")
+    del raster
+    gc.collect()
+    entries += regrid_check(cut, card)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1596,7 +1870,11 @@ def main():
     t0 = time.perf_counter()
     converters += store_phase(cut, matrix, card, in_memory)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    availability = availability_phase(cut, card)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"converters": converters}), flush=True)
+    print(json.dumps({"availability": availability}), flush=True)
 
     kernels = [{
         "name": "wind_pv_bus_megakernel",

@@ -1,6 +1,9 @@
 """The port's public surface against the JAX package's: every public
-function of ``atlite_tpu.convert`` has its counterpart with the same
-signature (port-only parameters listed), and the public members of
+function of ``atlite_tpu.convert`` and of the GIS modules (``gis.exclusion``,
+``gis.raster``, ``gis.regrid``, ``gis.kernels``, ``gis.geotiff``, their
+classes' methods included) has its counterpart with the same signature
+(port-only parameters listed); the top-level ``__all__`` and the
+``gis`` namespace cover the JAX ones; and the public members of
 ``Cutout`` and ``DataArray`` are the JAX ones less an explicit list of
 names deferred to later slices, which each slice shortens.
 
@@ -12,6 +15,7 @@ result with its ``FutureWarning``.  Tolerance: rtol 1e-5, atol 2e-5
 (float32 chains, JAX with x64 off), as in ``test_torch_convert.py``.
 """
 
+import importlib
 import inspect
 import warnings
 
@@ -36,7 +40,6 @@ torch.set_num_threads(1)
 PORT_ONLY = {"convert_line_rating": {"device"}}
 # members of the JAX classes that later slices port (ROADMAP queue 1)
 DEFERRED_CUTOUT = {
-    "availabilitymatrix",                                  # item 2
     "shard", "unshard",                                    # item 4
     "to_netcdf",                                           # item 5
 }
@@ -65,6 +68,58 @@ def test_convert_signature(name):
     assert [(p.name, p.kind, p.default) for p in kept] == \
         [(p.name, p.kind, p.default) for p in want.parameters.values()]
     assert extra <= set(got.parameters)
+
+
+GIS_MODULES = ["exclusion", "raster", "regrid", "kernels", "geotiff"]
+
+
+def public_callables(module):
+    """Public functions (jit-wrapped ones included) and the public methods
+    of the public classes defined in ``module``, by name."""
+    out = {}
+    for n, f in vars(module).items():
+        if n.startswith("_") or getattr(f, "__module__", None) != module.__name__:
+            continue
+        if inspect.isclass(f):
+            for m, g in vars(f).items():
+                g = g.__func__ if isinstance(g, (staticmethod, classmethod)) else g
+                if not m.startswith("_") and inspect.isfunction(g) or m == "__init__":
+                    out[f"{n}.{m}"] = g
+        elif callable(f):
+            out[n] = f
+    return out
+
+
+GIS_CALLABLES = [(mod, name) for mod in GIS_MODULES for name in sorted(public_callables(
+    importlib.import_module(f"atlite_tpu.gis.{mod}")))]
+
+
+@pytest.mark.parametrize("mod", GIS_MODULES)
+def test_gis_module_has_every_public_callable(mod):
+    want = public_callables(importlib.import_module(f"atlite_tpu.gis.{mod}"))
+    got = public_callables(importlib.import_module(f"atlite_tpu_torch.gis.{mod}"))
+    assert set(want) <= set(got)
+
+
+@pytest.mark.parametrize("mod, name", GIS_CALLABLES, ids=[f"{m}.{n}" for m, n in GIS_CALLABLES])
+def test_gis_signature(mod, name):
+    want = public_callables(importlib.import_module(f"atlite_tpu.gis.{mod}"))[name]
+    got = public_callables(importlib.import_module(f"atlite_tpu_torch.gis.{mod}"))[name]
+    assert [(p.name, p.kind, p.default) for p in inspect.signature(got).parameters.values()] == \
+        [(p.name, p.kind, p.default) for p in inspect.signature(want).parameters.values()]
+
+
+def test_top_level_and_gis_namespaces_cover_jax():
+    import atlite_tpu.gis as jgis
+    import atlite_tpu_torch.gis as tgis
+
+    assert set(atlite_tpu.__all__) <= set(atlite_tpu_torch.__all__)
+    for name in atlite_tpu.__all__:
+        assert hasattr(atlite_tpu_torch, name), name
+    assert set(jgis.__all__) <= set(tgis.__all__)
+    for name in [n for n in vars(jgis) if not n.startswith("_") and callable(getattr(jgis, n))]:
+        assert callable(getattr(tgis, name, None)), name
+    assert atlite_tpu_torch.windturbines.Vestas_V112_3MW.name == "Vestas_V112_3MW.yaml"
 
 
 def public_members(cls):

@@ -25,7 +25,7 @@ from atlite_tpu_torch import entry, from_jax_inputs, step_fn
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-BANNED = ("jax", "jaxlib", "atlite_tpu", "pandas", "yaml")
+BANNED = ("jax", "jaxlib", "atlite_tpu", "pandas", "yaml", "rasterio")
 
 
 def jax_step(args):
@@ -167,6 +167,22 @@ h = c.hydro({{"lon": [-2.0], "lat": [58.0]}}, basins, aggregate_time=None)
 assert h.values.shape == (1, 24) and h.values.max() > 0
 lr = c.line_rating([LineString([(-3.5, 57.0), (0.5, 60.0)])], line_resistance=1e-4)
 assert lr.values.shape == (1, 24) and (lr.values > 0).all()
+from atlite_tpu_torch import ExclusionContainer, regrid
+from atlite_tpu_torch.core.grid import Affine
+from atlite_tpu_torch.gis.raster import Raster
+landuse = Raster(np.random.default_rng(0).integers(0, 3, (160, 120)).astype(np.uint8),
+                 Affine(5000.0, 0, 3.2e6, 0, -5000.0, 4.5e6), 3035, 255)
+avail = []
+for backend in ("device", "host"):
+    exc = ExclusionContainer(3035, res=5000)
+    exc.add_raster(landuse, codes=[1])
+    avail.append(c.availabilitymatrix(regions, exc, backend=backend).values)
+assert avail[0].shape == (2,) + c.shape and np.abs(avail[0] - avail[1]).max() < 0.1
+g = c.grid_desc
+field = atlite_tpu_torch.DataArray(torch.as_tensor(c.data["wnd100m"][:2]), dims=("time", "y", "x"),
+                                   coords={{"time": g.time[:2], "y": g.y, "x": g.x}})
+rg = regrid(field, np.arange(-3.5, 1.5, 0.5), np.arange(56.5, 62, 0.5), resampling="average")
+assert rg.values.shape == (2, 11, 10) and np.isfinite(rg.values).all()
 import tempfile
 from pathlib import Path
 path = Path(tempfile.mkdtemp()) / "store"
@@ -197,8 +213,10 @@ def test_port_runs_without_jax_and_pandas():
     (streamed packed), CSP from its YAML file, tracked Hay-Davies
     irradiation, the BSR entry, the C++ geometry engine, wind and PV by
     shapes (with a layout), a smoothed turbine read by its Path, hydro,
-    line rating, and a store written by ``prepare``, reopened and
-    streamed, run with jax, atlite_tpu, pandas and yaml refused;
+    line rating, the availability matrix (device path on the CPU and host
+    path), ``regrid`` of a field held in a tensor, and a store written by
+    ``prepare``, reopened and streamed, run with jax, atlite_tpu, pandas,
+    yaml and rasterio refused;
     ``to_pandas`` asks for pandas only when it is called."""
     out = subprocess.run(
         [sys.executable, "-c", BLOCKER.format(banned=BANNED)],
@@ -236,7 +254,7 @@ def test_no_banned_imports(path):
 
 
 def test_chip_smoke_imports_only_the_port():
-    allowed = {"__future__", "ctypes", "dataclasses", "gc", "json", "mmap", "os", "pathlib", "re",
-               "shutil", "subprocess", "sys", "tempfile", "time", "numpy", "scipy", "torch",
-               "atlite_tpu_torch"}
+    allowed = {"__future__", "ctypes", "dataclasses", "gc", "json", "logging", "mmap", "os",
+               "pathlib", "re", "shutil", "subprocess", "sys", "tempfile", "time", "numpy",
+               "scipy", "torch", "atlite_tpu_torch"}
     assert set(imported_roots(ROOT / "chip_smoke.py")) <= allowed
