@@ -20,9 +20,11 @@ from atlite_tpu_torch.cutout import Cutout
 from atlite_tpu_torch.dataarray import DataArray
 from atlite_tpu_torch.entry import (
     build_inputs,
+    dryrun_multichip,
     entry,
     example_inputs,
     from_jax_inputs,
+    sharded_step_fn,
     step_fn,
 )
 from atlite_tpu_torch.gis.exclusion import ExclusionContainer
@@ -56,8 +58,10 @@ __all__ = [
     "get_cspinstallationconfig",
     "windturbine_smooth",
     "build_inputs",
+    "dryrun_multichip",
     "entry",
     "example_inputs",
     "from_jax_inputs",
+    "sharded_step_fn",
     "step_fn",
 ]

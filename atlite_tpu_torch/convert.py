@@ -126,20 +126,34 @@ def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=
     stream_pack = convert_kwds.pop("stream_pack", None)
     if stream_pack not in (None, "int16"):
         raise ValueError(f"stream_pack must be 'int16' or None, got {stream_pack!r}")
-    if time_chunk is None:
+    sharded = getattr(cutout, "_mesh", None) is not None
+    if sharded:
+        # streamed chunk staging is single-device; on a shard()-ed cutout
+        # it would silently drop the mesh decomposition
+        if time_chunk:
+            raise ValueError(
+                "streamed conversion (time_chunk) is single-device and "
+                "cannot honor a shard()-ed cutout's mesh; unshard() first, "
+                "or use core.comm.from_store for multi-host streaming")
+        time_chunk = None  # ignore a stored chunksize: run sharded resident
+    elif time_chunk is None:
         # a stored chunk size is the streaming default
         time_chunk = (cutout.chunks or {}).get("time")
         if time_chunk and time_chunk >= len(cutout.grid_desc.time):
             time_chunk = None
     if stream_pack is not None and not time_chunk:
-        raise ValueError("stream_pack requires streamed conversion: pass a time_chunk= "
-                         "smaller than the time axis")
+        raise ValueError(
+            "stream_pack requires streamed conversion: pass a time_chunk= "
+            "smaller than the time axis (sharded cutouts must unshard() "
+            "first)")
 
     if matrix is None and layout is None and shapes is None:
         if per_unit or return_capacity:
             raise ValueError("One of `matrix`, `shapes` and `layout` must be "
                              "given for `per_unit` or `return_capacity`")
-        if time_chunk:
+        if sharded:
+            da = _sharded_convert(cutout, convert_func, **convert_kwds)
+        elif time_chunk:
             da = _chunked_convert(cutout, convert_func, time_chunk, stream_pack=stream_pack,
                                   **convert_kwds)
         else:
@@ -176,7 +190,10 @@ def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=
     if index.ndim != 1:
         raise ValueError("index must have a single dimension")
 
-    if time_chunk:
+    if sharded:
+        results = _sharded_convert(cutout, convert_func, aggregate=(matrix, index, bus_name),
+                                   **convert_kwds)
+    elif time_chunk:
         results = _chunked_convert(cutout, convert_func, time_chunk,
                                    aggregate=(matrix, index, bus_name),
                                    stream_pack=stream_pack, **convert_kwds)
@@ -437,6 +454,64 @@ def _chunked_convert(cutout, convert_func, time_chunk, aggregate=None, stream_pa
         values = np.concatenate(pieces, axis=taxis)
     return DataArray(values, coords={**template.coords, "time": np.concatenate(times)},
                      dims=template.dims, attrs=template.attrs, name=template.name)
+
+
+# ---------------------------------------------------------------------------
+# sharded conversion
+# ---------------------------------------------------------------------------
+def _sharded_convert(cutout, convert_func, aggregate=None, **convert_kwds):
+    """Convert a shard()-ed cutout block by block (``Cutout._shard_cutouts``).
+
+    Time is cut by the streamer's rules: converters marked
+    ``_time_elementwise`` (every hour on its own) into the mesh's even t
+    pieces; the ``_day_aligned`` demand converters at day edges
+    (``_chunk_bounds`` with ceil(T / t) hours a piece), so that no day is
+    split; any other converter runs with "t" whole.  Each block converts
+    on its device.  With ``aggregate=(csr_matrix, index, bus_name)`` each
+    block's series are contracted with its own columns of the matrix, the
+    partial (T_l, B) series summed over "x" on the row's first device and
+    the rows joined over "t"; without, the gridded blocks are joined over
+    "x" and "t".  Returns a DataArray of host values.
+    """
+    T = len(cutout.grid_desc.time)
+    nt = cutout._mesh.shape["t"]
+    if getattr(convert_func, "_day_aligned", False):
+        bounds = _chunk_bounds(cutout, convert_func, -(-T // nt), convert_kwds)
+    elif getattr(convert_func, "_time_elementwise", False):
+        bounds = None  # the cut of fields()
+    else:
+        bounds = [0, T]
+    subs = cutout._shard_cutouts(bounds)
+    closures = {}
+    g = cutout.grid_desc
+    Y, X = len(g.y), len(g.x)
+    xb = cutout._x_bounds()
+    if aggregate is not None:
+        matrix, index, bus_name = aggregate
+        csc = sp.csc_matrix(matrix)
+    rows, times = {}, {}
+    for (k, m), sub in subs.items():
+        da = convert_func(sub, **convert_kwds)
+        times.setdefault(k, da.coords["time"])
+        if aggregate is None:
+            rows.setdefault(k, []).append(da.to_numpy())
+            continue
+        if (m, sub.device) not in closures:
+            x0, x1 = xb[m], xb[m + 1]
+            cols = (np.arange(Y)[:, None] * X + np.arange(x0, x1)[None, :]).ravel()
+            closures[(m, sub.device)] = spmm_closure(csc[:, cols].tocsr())
+        values = torch.as_tensor(da.values).reshape(da.sizes["time"], -1)
+        part = closures[(m, sub.device)](values)  # (T_l, B)
+        acc = rows.get(k)
+        rows[k] = part if acc is None else acc + part.to(acc.device, non_blocking=True)
+    time_coord = np.concatenate([times[k] for k in sorted(times)])
+    if aggregate is None:
+        values = np.concatenate([np.concatenate(rows[k], axis=-1) for k in sorted(rows)], axis=0)
+        return DataArray(values, coords={**da.coords, "time": time_coord, "x": g.x},
+                         dims=da.dims, attrs=da.attrs, name=da.name)
+    values = np.concatenate([rows[k].T.cpu().numpy() for k in sorted(rows)], axis=1)
+    return DataArray(values, coords={bus_name: index, "time": time_coord},
+                     dims=(bus_name, "time"), attrs=da.attrs, name=da.name)
 
 
 # ---------------------------------------------------------------------------
@@ -894,11 +969,16 @@ def line_rating(cutout, shapes, line_resistance, show_progress=False, dask_kwarg
 
     T = len(cutout.grid_desc.time)
     fields = cutout.fields()
+    if getattr(cutout, "_mesh", None) is not None:
+        # a line's cells lie anywhere on the grid: the sharded fields are
+        # gathered on the mesh's first device
+        fields = {k: v.gather() for k, v in fields.items()}
+    dev = fields["temperature"].device
     if "solar_altitude" not in fields or "solar_azimuth" not in fields:
         eph, lon, lat = _solar_inputs(cutout, {})  # no stored angles: the ephemeris
         sp_ = solar.solar_position(eph["declination"], eph["hour_angle0"], lon, lat)
-        fields = {**fields, "solar_altitude": sp_["altitude"], "solar_azimuth": sp_["azimuth"]}
-    dev = fields["temperature"].device
+        fields = {**fields, "solar_altitude": sp_["altitude"].to(dev),
+                  "solar_azimuth": sp_["azimuth"].to(dev)}
     flat_idx = torch.as_tensor(cell_idx.ravel(), device=dev)
     dmask = torch.as_tensor(mask, device=dev)
     static = {v: fields[v].reshape(-1).index_select(0, flat_idx).reshape(L, K, 1)

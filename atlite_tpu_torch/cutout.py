@@ -11,11 +11,14 @@ static fields.
 
 Every converter of the JAX Cutout is bound, the GIS members that build
 aggregation matrices and layouts from shapes (``indicatormatrix``,
-``intersectionmatrix``, ``area`` and the three layouts), the grid's
-metadata, ``sel``/``merge``/``equals`` and the store
+``intersectionmatrix``, ``area`` and the three layouts), the availability
+matrix, the grid's metadata, ``sel``/``merge``/``equals`` and the store
 (``prepare`` checkpoints each feature into it, ``to_file`` writes it).
-NetCDF files, sharding and the availability matrix wait for later
-slices (ROADMAP queue 1).
+``shard(mesh)`` spreads the cutout over a ("t", "x") mesh of devices
+(``core/mesh.py``): each mesh position gets a sub-cutout of a time slice
+and an x slice, staged as ``isel_time`` stages one, and the converters
+run block by block.  NetCDF files wait for a later slice (ROADMAP queue
+1, item 5).
 """
 
 from __future__ import annotations
@@ -84,6 +87,7 @@ class Cutout:
         self._static_device = None
         self._pack16 = None
         self._pinned = None  # the streamer's pinned buffers (convert._Stager)
+        self._mesh = None  # set by shard()
 
         if path is not None and path.exists():
             grid_kwargs, stored, attrs, var_attrs = read_store(path)
@@ -225,6 +229,7 @@ class Cutout:
         self._fields_cache = None
         self._static_cache = None
         self._pack_cache = None
+        self._shard_cache = None
 
     # ---------------------------------------------------------- preparation
     def prepare(self, features=None, tmpdir=None, data_format=None, overwrite=False,
@@ -327,8 +332,12 @@ class Cutout:
 
     def fields(self, dtype=None):
         """Tensors of all prepared variables on the cutout's device, plus
-        the (sin, cos) pairs of stored solar angles; built once per dtype."""
+        the (sin, cos) pairs of stored solar angles; built once per dtype.
+        On a sharded cutout: {name: ShardedTensor} over its mesh, (T, Y, X)
+        variables cut on ("t", None, "x"), (Y, X) ones on (None, "x")."""
         dtype = self.dtype if dtype is None else np.dtype(dtype)
+        if self._mesh is not None:
+            return self._sharded_fields(dtype)
         if self._fields_cache is None or self._fields_cache[0] != dtype:
             if self._stage_batched:
                 batch = self._pack(dtype)
@@ -465,6 +474,115 @@ class Cutout:
                                   if not _time_dims(self.var_attrs, n)}
         return self._static_cache
 
+    # ------------------------------------------------------------------ mesh
+    def shard(self, mesh=None):
+        """Distribute the cutout over a ("t", "x") device mesh
+        (``core.mesh.make_mesh``; None builds one over every local card).
+
+        Each mesh position gets a sub-cutout: a time slice and an x slice
+        of the host arrays (no copy) on that position's device, its time
+        fields staged in one upload and its static fields once a device
+        and x slice; an axis that does not divide the mesh stays whole.
+        Converters then run block by block (``convert_and_aggregate``).
+        The mesh must be this process's: a mesh that spans processes reads
+        a store through ``core.comm.from_store``."""
+        from atlite_tpu_torch.core.mesh import Mesh, make_mesh
+
+        mesh = make_mesh() if mesh is None else mesh
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"shard() takes a core.mesh.Mesh, not {type(mesh).__name__}")
+        if mesh.process_count > 1:
+            raise ValueError("a cutout shards over this process's devices; a mesh that spans "
+                             "processes reads a store through core.comm.from_store")
+        self._mesh = mesh
+        self._invalidate()
+        return self
+
+    def unshard(self):
+        """Back to the cutout's own device."""
+        self._mesh = None
+        self._invalidate()
+        return self
+
+    def _x_bounds(self):
+        nx, X = self._mesh.shape["x"], len(self.grid_desc.x)
+        return list(range(0, X + 1, X // nx)) if nx > 1 and X % nx == 0 else [0, X]
+
+    def _t_bounds(self):
+        """The time cut of ``fields()`` and of converters that treat every
+        hour on its own: even pieces, or whole where the mesh's t does not
+        divide T."""
+        nt, T = self._mesh.shape["t"], len(self.grid_desc.time)
+        return list(range(0, T + 1, T // nt)) if nt > 1 and T % nt == 0 else [0, T]
+
+    def _shard_cutouts(self, t_bounds=None):
+        """{(t piece, x piece): sub-cutout} of a sharded cutout, in mesh
+        order: time piece k is [t_bounds[k], t_bounds[k + 1]) (default: the
+        cut of ``fields()``) on mesh row k, x piece l the l-th x slice on
+        column l.  Built once per cut."""
+        mesh = self._mesh
+        if mesh is None:
+            raise ValueError("the cutout is not sharded; call shard() first")
+        t_bounds = tuple(self._t_bounds() if t_bounds is None else t_bounds)
+        if len(t_bounds) - 1 > mesh.shape["t"]:
+            raise ValueError(f"{len(t_bounds) - 1} time pieces for a mesh of t={mesh.shape['t']}")
+        if self._shard_cache is None:
+            self._shard_cache = {"subs": {}, "static": {}}
+        cache = self._shard_cache
+        xb = self._x_bounds()
+        if t_bounds not in cache["subs"]:
+            subs = {}
+            for k in range(len(t_bounds) - 1):
+                for m in range(len(xb) - 1):
+                    subs[(k, m)] = self._sub(t_bounds[k], t_bounds[k + 1], xb[m], xb[m + 1],
+                                             mesh.devices[k, m])
+            cache["subs"][t_bounds] = subs
+        return cache["subs"][t_bounds]
+
+    def _sub(self, t0, t1, x0, x1, device):
+        """Sub-cutout [t0, t1) x [x0, x1) on ``device`` (the host arrays
+        sliced, not copied), whose fields stage in one upload beside the
+        static fields of its x slice, staged once a device."""
+        g = self.grid_desc
+        data = {}
+        for n, a in self.data.items():
+            a = np.asarray(a)
+            if _time_dims(self.var_attrs, n):
+                a = a[t0:t1]
+            if tuple(self.var_attrs.get(n, {}).get("dims", ("x",)))[-1] == "x":
+                a = a[..., x0:x1]
+            data[n] = a
+        sub = Cutout(data=data, grid_desc=dataclasses.replace(g, x=g.x[x0:x1], time=g.time[t0:t1]),
+                     attrs=dict(self.attrs), var_attrs=dict(self.var_attrs), dtype=self.dtype,
+                     device=device)
+        static = self._shard_cache["static"]
+        if (device, x0, x1) not in static:
+            static[(device, x0, x1)] = {n: sub._put(a, self.dtype) for n, a in sub.data.items()
+                                        if not _time_dims(self.var_attrs, n)}
+        sub._stage_batched = True
+        sub._static_device = static[(device, x0, x1)]
+        return sub
+
+    def _sharded_fields(self, dtype):
+        from atlite_tpu_torch.core.mesh import P, ShardedTensor, field_spec
+
+        subs = self._shard_cutouts()
+        mesh = self._mesh
+        nt, nx = (len(b) - 1 for b in (self._t_bounds(), self._x_bounds()))
+        per = {ij: subs[(ij[0] if nt > 1 else 0, ij[1] if nx > 1 else 0)].fields(dtype)
+               for ij in mesh.positions()}
+        out = {}
+        for name, t in per[(0, 0)].items():
+            # (T, Y, X) time fields and (Y, X) statics
+            spec, parts = (field_spec(), (nt, 1, nx)) if t.ndim == 3 else (P(None, "x"), (1, nx))
+            blocks = np.empty((mesh.local_shape["t"], mesh.shape["x"]), dtype=object)
+            for ij in mesh.positions():
+                b, dev = per[ij][name], mesh.devices[ij]
+                # a whole axis: the piece of another position, on this device
+                blocks[ij] = b if b.device == dev else b.to(dev)
+            out[name] = ShardedTensor(mesh, spec, parts, blocks)
+        return out
+
     # ------------------------------------------------------------------ gis
     @property
     def grid(self):
@@ -486,12 +604,13 @@ class Cutout:
 
     def availabilitymatrix(self, shapes, excluder, nprocesses=None,
                            disable_progressbar=True, shapes_crs=4326,
-                           backend="auto"):
+                           backend="auto", mesh=None):
         """(shape, y, x) DataArray of the eligible share of each cell per
         shape (``gis.compute_availabilitymatrix``): on a cutout on a CUDA
-        card the batched device path, on a CPU cutout the host path."""
+        card the batched device path, on a CPU cutout the host path;
+        ``mesh`` splits the shapes of the device path over its devices."""
         return compute_availabilitymatrix(self, shapes, excluder, nprocesses,
-                                          disable_progressbar, shapes_crs, backend)
+                                          disable_progressbar, shapes_crs, backend, mesh)
 
     def area(self, crs=None):
         """Cell areas as a (y, x) DataArray, in the units of ``crs``

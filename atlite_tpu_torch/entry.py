@@ -6,14 +6,34 @@ The step turns stored weather fields into wind and PV bus series.  On a
 CUDA card it runs as one fused kernel (``ops/csrc/megakernel.cu``); on the
 CPU the same call runs the plain modules.  Inputs are made by the JAX
 package's recipe, with numpy alone, and ``from_jax_inputs`` carries either
-package's numpy inputs onto a device.
+package's numpy inputs onto a device.  ``sharded_step_fn`` runs the step
+over a ("t", "x") mesh (``core/mesh.py``), the fused kernel once a shard,
+and ``dryrun_multichip`` holds that against the unsharded step, in one
+process or several.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+import socket
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
 import numpy as np
+import scipy.sparse as sp
 import torch
 
+from atlite_tpu_torch.core.mesh import (
+    ShardedTensor,
+    _shard_columns,
+    _sum_over_x,
+    make_mesh,
+    shard_fields,
+    sharded_aggregate_banded,
+)
 from atlite_tpu_torch.core.timeutil import solar_ephemeris
 from atlite_tpu_torch.datasets import synthetic
 from atlite_tpu_torch.ops.megakernel import FIELD_ORDER, knot_table, wind_pv_bus_megakernel
@@ -119,3 +139,188 @@ def entry(device=None):
     device = resolve_device(device)
     args = from_jax_inputs(*example_inputs(), device=device)
     return step_fn(), args
+
+
+def sharded_step_fn(mesh):
+    """The headline step over a ("t", "x") mesh: ``step(fields, eph, lon,
+    lat, V, POWn, matrix) -> (wind_bus, pv_bus)``, each a ShardedTensor
+    ("t", None) of (T, B).
+
+    ``fields`` are (T, Y, X) arrays or ShardedTensors (``shard_fields``);
+    ``lat`` (Y,), ``V``, ``POWn`` and the (B, Y*X) ``matrix`` are arrays or
+    tensors, staged once on every device (the matrix as each x block's
+    columns) and kept while the step is given the same objects.  Each
+    block runs ``step_fn()`` on its fields, its latitudes and its columns
+    of the matrix (the fused kernel on a card: one launch a block), and
+    the partial bus series are summed over "x".  ``eph`` and ``lon`` are
+    unused, as in ``step_fn``.
+    """
+    steps = {}  # one step_fn per device: it keeps that device's knot table
+    staged = {"key": None}
+
+    def stage(lat, V, POWn, matrix, Y, X, nxs):
+        key = (lat, V, POWn, matrix, Y, X, nxs)
+        if staged["key"] is None or any(a is not b for a, b in zip(staged["key"], key)):
+            m = matrix.detach().cpu().numpy() if isinstance(matrix, torch.Tensor) \
+                else np.asarray(matrix, dtype=np.float32)
+            cols = [np.ascontiguousarray(m[:, _shard_columns(Y, X, nxs, j)]) for j in range(nxs)]
+            staged.update(key=key, per={}, cols=cols)
+        return staged
+
+    def on(device, j, lat, V, POWn):
+        """(lat, V, POWn) staged once a device, the columns once a device
+        and x block."""
+        per = staged["per"]
+
+        def put(a):
+            a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+            return a.to(device=device, dtype=torch.float32).contiguous()
+
+        if device not in per:
+            per[device] = (put(lat), put(V), put(POWn))
+        if (device, j) not in per:
+            per[(device, j)] = put(staged["cols"][j])
+        return (*per[device], per[(device, j)])
+
+    def step(fields, eph, lon, lat, V, POWn, matrix):
+        if not all(isinstance(v, ShardedTensor) for v in fields.values()):
+            fields = shard_fields(mesh, fields)
+        w = fields["wnd100m"]
+        nxs = w.parts[-1]
+        Y, X = w[0, 0].shape[1], w[0, 0].shape[2] * nxs
+        stage(lat, V, POWn, matrix, Y, X, nxs)
+        wind, pv = {}, {}
+        for (i, j), b in w.distinct():
+            dev = b.device
+            lat_d, V_d, POWn_d, cols = on(dev, j, lat, V, POWn)
+            local = {k: fields[k][i, j] for k in FIELD_ORDER}
+            if dev not in steps:
+                steps[dev] = step_fn()
+            wind[(i, j)], pv[(i, j)] = steps[dev](local, None, None, lat_d, V_d, POWn_d, cols)
+        return _sum_over_x(mesh, wind, w.parts[0]), _sum_over_x(mesh, pv, w.parts[0])
+
+    return step
+
+
+def _mesh_devices(n_devices, devices=None):
+    """``n_devices`` devices for a mesh: the given ones (repeated in turn
+    when fewer), else the visible CUDA cards in turn (raises without
+    one)."""
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())] \
+            if torch.cuda.is_available() else []
+        if not devices:
+            raise RuntimeError("no CUDA card is available; pass devices= (e.g. "
+                               "[torch.device('cpu')] * 8) to run on the CPU")
+    devices = [torch.device(d) for d in devices]
+    return [devices[i % len(devices)] for i in range(n_devices)]
+
+
+def dryrun_multichip(n_devices: int, n_processes: int = None, devices=None) -> None:
+    """Run the sharded headline step on an n-device mesh and hold it
+    against the unsharded step; then the distributed banded aggregation
+    against ``field @ mat.T``.
+
+    ``devices`` (port only) are the mesh's devices, repeated in turn up to
+    ``n_devices`` (default: the visible cards; ``[torch.device("cpu")]``
+    runs it on the CPU).  On a card the fused kernel must launch once a
+    shard.  With ``n_processes`` > 1, instead start that many processes
+    (``n_devices // n_processes`` devices each, of the same type),
+    joined by ``core.comm`` over gloo, each running
+    ``core/multihost_worker.py`` over a process-spanning mesh and a small
+    store; a worker that fails fails the call.
+    """
+    if n_processes and n_processes > 1:
+        _dryrun_multiprocess(n_devices, n_processes, devices)
+        return
+    devices = _mesh_devices(n_devices, devices)
+    mesh = make_mesh(devices)
+    t_size, x_size = mesh.shape["t"], mesh.shape["x"]
+
+    # tiny but shard-cleanly-divisible shapes
+    T, Y, X, B = 4 * t_size, 8, 4 * x_size, 3
+    host = example_inputs(T=T, Y=Y, X=X, B=B)
+    fields, eph, lon, lat, V, POWn, matrix = host
+    step = sharded_step_fn(mesh)
+    before = wind_pv_bus_megakernel.launches
+    wind_bus, pv_bus = step(shard_fields(mesh, fields), eph, lon, lat, V, POWn, matrix)
+    wind_bus, pv_bus = wind_bus.gather(), pv_bus.gather()
+    launched = wind_pv_bus_megakernel.launches - before
+    assert wind_bus.shape == (T, B) and pv_bus.shape == (T, B)
+    if mesh.device_type == "cuda" and launched != mesh.size:
+        raise RuntimeError(f"the sharded step launched the fused kernel {launched} times "
+                           f"over {mesh.size} shards")
+
+    # sharded == single-device VALUES, not just finiteness
+    exp_wind, exp_pv = step_fn()(*from_jax_inputs(*host, device=devices[0]))
+    np.testing.assert_allclose(wind_bus.cpu().numpy(), exp_wind.cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(pv_bus.cpu().numpy(), exp_pv.cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+
+    # the distributed large-matrix aggregation: per-shard column bands and
+    # one sum over "x"
+    rng = np.random.default_rng(1)
+    mat = sp.random(B, Y * X, density=0.1, random_state=2, format="csr")
+    agg = sharded_aggregate_banded(mesh, mat, Y, X, block_b=2, align=4)
+    field = rng.random((T, Y, X)).astype(np.float32)
+    out = agg(field).gather().cpu().numpy()
+    np.testing.assert_allclose(out, field.reshape(T, -1) @ mat.toarray().T,
+                               rtol=1e-4, atol=1e-5)
+
+
+def _dryrun_multiprocess(n_devices, n_processes, devices=None, workdir=None, timeout=600):
+    """Start ``n_processes`` workers (``core/multihost_worker.py``) of
+    ``n_devices // n_processes`` devices each over a small synthetic store
+    made under ``workdir`` (default: a temporary directory; removed
+    after); returns [(exit code, output)] of the workers, and raises when
+    one failed or skipped a stage."""
+    from atlite_tpu_torch.cutout import Cutout  # the cutout module imports this one
+
+    assert n_devices % n_processes == 0
+    local = n_devices // n_processes
+    kind = _mesh_devices(1, devices)[0].type
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    base = Path(workdir) if workdir is not None else Path(tempfile.mkdtemp(prefix="dryrun_store"))
+    base.mkdir(parents=True, exist_ok=True)
+    # worker output goes to files, not pipes: a worker blocked on a full
+    # pipe mid-collective would hold up the whole group
+    logs = [tempfile.TemporaryFile(mode="w+", encoding="utf-8") for _ in range(n_processes)]
+    try:
+        # X divisible by the x axis, T by the process-spanning t axis
+        Cutout(base / "mh", device="cpu", module="synthetic", x=slice(-4, 1.76),
+               y=slice(56, 60), time="2013-01-01").prepare(features=["wind"])
+        store = base / "mh.atc"
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "atlite_tpu_torch.core.multihost_worker", str(i),
+             str(n_processes), str(port), str(store), kind, str(local)],
+            stdout=logs[i], stderr=subprocess.STDOUT, env=env, cwd=root)
+            for i in range(n_processes)]
+        try:
+            for p in procs:
+                p.wait(timeout=timeout)
+            results = []
+            for i, (p, lf) in enumerate(zip(procs, logs)):
+                lf.seek(0)
+                out = lf.read()
+                results.append((p.returncode, out))
+                if p.returncode != 0:
+                    raise RuntimeError(f"worker {i} failed (exit {p.returncode}):\n{out}")
+                for stage in ("STEP OK", "AGG OK", "STORE OK", "PIPELINE OK", "MULTIHOST OK"):
+                    if stage not in out:
+                        raise RuntimeError(f"worker {i} did not reach {stage}:\n{out}")
+            return results
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    finally:
+        for lf in logs:
+            lf.close()
+        shutil.rmtree(base, ignore_errors=True)

@@ -421,7 +421,7 @@ def _shapes_and_index(shapes):
 
 def compute_availabilitymatrix(cutout, shapes, excluder, nprocesses=None,
                                disable_progressbar=True, shapes_crs=4326,
-                               backend="auto"):
+                               backend="auto", mesh=None):
     """Eligible share of each cutout cell per shape (atlite gis.py:674-762).
 
     Returns a DataArray (shape, y, x) of host values, ascending y; rows
@@ -434,11 +434,14 @@ def compute_availabilitymatrix(cutout, shapes, excluder, nprocesses=None,
     CUDA card and the host path on a CPU cutout.  Where the device path
     cannot express the excluder (buffered raster layers; a CRS with no
     closed form), ``"auto"`` takes the host path and logs so, while an
-    explicit ``"device"`` raises ``NotImplementedError``.
+    explicit ``"device"`` raises ``NotImplementedError``.  ``mesh`` (port
+    only; the JAX package takes it on ``availability_matrix_device``)
+    splits the shapes of the device path over a ``core.mesh.Mesh``; with
+    a mesh, "auto" takes the device path.
     """
     auto_backend = backend == "auto"
     if auto_backend:
-        backend = "device" if cutout.device.type == "cuda" else "host"
+        backend = "device" if cutout.device.type == "cuda" or mesh is not None else "host"
     geom_list, index = _shapes_and_index(shapes)
 
     if backend == "device":
@@ -446,7 +449,7 @@ def compute_availabilitymatrix(cutout, shapes, excluder, nprocesses=None,
 
         try:
             availability = availability_matrix_device(
-                cutout, geom_list, excluder, shapes_crs=shapes_crs
+                cutout, geom_list, excluder, shapes_crs=shapes_crs, mesh=mesh
             )
         except NotImplementedError as exc:
             if not auto_backend:

@@ -330,16 +330,21 @@ def availability_matrix_device(cutout, shapes_geoms, excluder,
     per-shape mask is made), accumulating the downsampled partial sums on
     the device and reading them back once, after every block was
     dispatched — scales to country-size 100 m lattices.
-    ``mesh`` (shapes split over several cards) is not ported yet.
-    """
-    from atlite_tpu_torch.gis.crs import normalize_crs as _ncrs, transform_points
-    from atlite_tpu_torch.gis.exclusion import _as_geometry_list
-    from atlite_tpu_torch.gis.raster import overlap_matrix, padded_transform_and_shape
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the shapes split over several cards) is not ported yet "
-            "(ROADMAP queue 1, item 4: multi-GPU)")
+    ``mesh`` (a ``core.mesh.Mesh``): the shapes axis is padded with empty
+    shapes to a multiple of the mesh's devices (this process's) and split
+    over them, one group of shapes a device in mesh order (the multi-device
+    counterpart of atlite's Pool over shapes); each device runs the same
+    per-block path on its group, in turn; the groups are joined and the
+    padding trimmed.  The excluder caches the exclusion mask of one device
+    (the last), so positions on one card share it and a second card
+    builds its own.
+    """
+    from atlite_tpu_torch.core.mesh import Mesh
+    from atlite_tpu_torch.gis.exclusion import _as_geometry_list
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a core.mesh.Mesh, not {type(mesh).__name__}")
     if not excluder.all_open:
         excluder.open_files()
     if any(d["buffer"] for d in excluder.rasters):
@@ -351,7 +356,32 @@ def availability_matrix_device(cutout, shapes_geoms, excluder,
         raise NotImplementedError(
             "buffered raster exclusion layers require per-shape crop "
             "semantics (host path)")
-    device = cutout.device
+    # the query shapes, rasterized in batches on the device (float32, as
+    # the JAX package on its chip)
+    geoms = _as_geometry_list(shapes_geoms, shapes_crs, excluder.crs)
+    edges, emask = shapes_to_edges(geoms)
+    if mesh is None:
+        return _availability_on(cutout, cutout.device, edges, emask, excluder, row_tile,
+                                max_device_pixels)
+    devices = list(mesh.devices.ravel())
+    S = edges.shape[0]
+    pad = (-S) % len(devices)
+    # padded shapes have no edges: they rasterize to zeros
+    edges = np.pad(edges, ((0, pad), (0, 0), (0, 0)))
+    emask = np.pad(emask, ((0, pad), (0, 0)))
+    per = edges.shape[0] // len(devices)
+    parts = [_availability_on(cutout, dev, edges[k * per:(k + 1) * per],
+                              emask[k * per:(k + 1) * per], excluder, row_tile, max_device_pixels)
+             for k, dev in enumerate(devices)]
+    return np.concatenate(parts)[:S]
+
+
+def _availability_on(cutout, device, edges, emask, excluder, row_tile, max_device_pixels):
+    """availability_matrix_device's path on one device for the shapes'
+    (S, E, 4) edges and (S, E) edge mask."""
+    from atlite_tpu_torch.gis.crs import normalize_crs as _ncrs, transform_points
+    from atlite_tpu_torch.gis.raster import overlap_matrix, padded_transform_and_shape
+
     crs = excluder.crs
     res = excluder.res
 
@@ -387,10 +417,6 @@ def availability_matrix_device(cutout, shapes_geoms, excluder,
         tuple((id(d["geometry"]), d["buffer"], d["invert"])
               for d in excluder.geometries),
     )
-    # the query shapes, rasterized in one batch on the device (float32, as
-    # the JAX package on its chip)
-    geoms = _as_geometry_list(shapes_geoms, shapes_crs, crs)
-    edges, emask = shapes_to_edges(geoms)
     S = edges.shape[0]
     edges_d = torch.as_tensor(edges, dtype=torch.float32, device=device)
     emask_d = torch.as_tensor(emask, device=device)

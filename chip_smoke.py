@@ -113,9 +113,34 @@ Phases, in order; any failure exits non-zero:
      3 x 3 deg over a 100 m EPSG:3035 raster (~806 Mpix); then ``regrid``
      of a week of the continental wind field, held on the card, onto 0.5
      and 0.125 deg (average, bilinear), host s, bit for bit the same call
-     on a CPU cutout's field.
-Then one JSON line of the converters, one of availability, one of
-kernels and, last, the result line.
+     on a CPU cutout's field;
+ 16. multiple devices on the card: the mesh is every visible card repeated
+     to 8 positions (``core/mesh.py``; the number of distinct cards is
+     printed): (a) the headline step at the bench shape over meshes of 1,
+     2, 4 and 8 positions (``entry.sharded_step_fn``: the fused kernel
+     once a shard, the partial bus series summed over x), its launch count
+     rising by the number of shards, the series against the unsharded
+     step within 1e-5 * max with identical NaN masks (also with phase 6's
+     NaN cells), CUDA-event ms of each beside the unsharded step's (on one
+     card the cost of splitting, not a scaling result) and the host's
+     enqueue ms a step; (b)
+     ``halo_exchange`` values on an 8-way x mesh, and
+     ``sharded_regrid_bilinear`` of 168 h of the continental wind onto
+     0.125 deg on (t=2, x=4) against the serial ``regrid`` within 1e-6 *
+     max, on the first 480 of the cut's 481 columns (481 divide by no x);
+     (c) ``sharded_aggregate_banded`` of 720 h of that field, with NaN
+     cells, by a (2048, C) region matrix on (t=2, x=4) against the
+     unsharded banded route within 1e-5 * max, ms of both; (d)
+     ``cut.shard(mesh)`` of 720 h of that cut, ``wind`` and ``pv`` with the
+     matrix, resident, against the unsharded cut (first-call and repeat
+     wall s, busy ms and idle share under torch.profiler), ``time_chunk``
+     refused; (e) ``availabilitymatrix(..., mesh=)`` on phase 15's case
+     (b) against no mesh within 1e-6; (f) two processes sharing the card
+     over gloo (``core/comm.py``, ``core/multihost_worker.py``) on a small
+     store under build/ (removed after): each reads half of the store's
+     bytes and its results equal one process's; their exit codes.
+Then one JSON line of the converters, one of availability, one of the
+multi-device phase, one of kernels and, last, the result line.
 """
 
 from __future__ import annotations
@@ -156,7 +181,19 @@ from atlite_tpu_torch import convert as conv
 from atlite_tpu_torch.convert import convert_wind
 from atlite_tpu_torch.core import store
 from atlite_tpu_torch.core.grid import Affine
-from atlite_tpu_torch.entry import HUB_HEIGHT, PANEL
+from atlite_tpu_torch.core.mesh import (
+    NamedSharding,
+    P,
+    field_spec,
+    halo_exchange,
+    make_mesh,
+    map_shards,
+    put_global,
+    shard_fields,
+    sharded_aggregate_banded,
+    sharded_regrid_bilinear,
+)
+from atlite_tpu_torch.entry import HUB_HEIGHT, PANEL, _dryrun_multiprocess, sharded_step_fn, step_fn
 from atlite_tpu_torch.ops import _build
 from atlite_tpu_torch.ops import bsr_spmm as bsr_ops
 from atlite_tpu_torch.ops.bsr_spmm import (
@@ -1668,6 +1705,284 @@ def availability_phase(cut, card, res=AVAIL_RES_M):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multiple devices on the card
+# ---------------------------------------------------------------------------
+N_SHARDS = 8                 # mesh positions; the visible cards repeated to 8
+MESH_SIZES = (1, 2, 4, 8)    # bench_multichip.py --sizes 1,2,4,8
+MESH_X = 480                 # the continental cut's 481 columns divide no x; 480 do
+MESH_HOURS = 720             # the sharded cutout's hours (the first chunk)
+GRID_TOL = 1e-6              # sharded against serial regrid, relative to max
+MESH_STORE = Path(__file__).resolve().parent / "build" / "phase16_store"
+
+
+def mesh_devices(n):
+    """n mesh positions over the visible cards, in turn."""
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [cards[i % len(cards)] for i in range(n)]
+
+
+def within_max(name, got, want, tol):
+    """Raise unless the NaN masks agree and |got - want| <= tol * max|want|;
+    returns the max abs diff."""
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    if got.shape != want.shape or not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise RuntimeError(f"{name}: shapes {got.shape}/{want.shape} or NaN masks differ")
+    ok = ~np.isnan(want)
+    err, scale = float(np.abs(got[ok] - want[ok]).max()), float(np.abs(want[ok]).max())
+    log(f"    {name}: max abs diff {err:.3e} (max {scale:.4g}, tolerance {tol * scale:.3e})")
+    if not err <= tol * scale:
+        raise RuntimeError(f"{name}: max abs diff {err} above {tol} * {scale}")
+    return err
+
+
+def sharded_step_phase(args, nan_args, card):
+    """16 (a): the headline step over meshes of MESH_SIZES positions at the
+    bench shape, against the unsharded step on the same tensors (and with
+    NaN cells); the fused kernel must launch once a shard; CUDA-event ms
+    of each beside the unsharded step's, in one call, with the host's
+    enqueue time a step."""
+    fields, eph, lon, lat, V, POWn, matrix = args
+    T, Y, X = fields["wnd100m"].shape
+    step = step_fn()
+    ref = step(*args)
+    ref_nan = step(*nan_args)
+    unsharded_ms = [cuda_ms(lambda: step(*args), reps=20)]
+    rows, err = [], 0.0
+    for n in MESH_SIZES:
+        mesh = make_mesh(mesh_devices(n))
+        fs, fs_nan = shard_fields(mesh, fields), shard_fields(mesh, nan_args[0])
+        sstep = sharded_step_fn(mesh)
+        torch.cuda.synchronize()
+        wind_pv_bus_megakernel.launches = 0
+        w, p = sstep(fs, eph, lon, lat, V, POWn, matrix)
+        torch.cuda.synchronize()
+        launches = wind_pv_bus_megakernel.launches
+        if launches != mesh.size:
+            raise RuntimeError(f"mesh {mesh.shape}: {launches} launches of the fused kernel "
+                               f"for {mesh.size} shards")
+        log(f"  mesh t={mesh.shape['t']} x={mesh.shape['x']} ({n} shards, blocks of "
+            f"{T // mesh.shape['t']} h x {Y} x {X // mesh.shape['x']}): {launches} launches")
+        err = max(err, compare(f"sharded wind_bus, {n} shards", w.gather(), ref[0]),
+                  compare(f"sharded pv_bus, {n} shards", p.gather(), ref[1]))
+        wn, pn = sstep(fs_nan, eph, lon, lat, V, POWn, matrix)
+        err = max(err, compare(f"sharded wind_bus with NaN cells, {n} shards", wn.gather(),
+                               ref_nan[0]),
+                  compare(f"sharded pv_bus with NaN cells, {n} shards", pn.gather(), ref_nan[1]))
+        call = lambda: sstep(fs, eph, lon, lat, V, POWn, matrix)  # noqa: E731
+        ms = cuda_ms(call, reps=20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        enqueue = (time.perf_counter() - t0) / 20 * 1e3
+        log(f"    {n} shards: {ms:.4f} ms a step (CUDA events), the host enqueues one in "
+            f"{enqueue:.4f} ms (perf_counter over 20 calls, no sync)")
+        rows.append({"shards": n, "mesh": [mesh.shape["t"], mesh.shape["x"]],
+                     "launches": launches, "ms": ms, "enqueue_ms": enqueue})
+        del fs, fs_nan, w, p, wn, pn
+    unsharded_ms.append(cuda_ms(lambda: step(*args), reps=20))
+    base = sum(unsharded_ms) / 2
+    log(f"  CUDA events, 20 calls each, on {card}; on one card this is the cost of splitting "
+        f"the step, not a scaling result: unsharded {unsharded_ms[0]:.4f}/{unsharded_ms[1]:.4f} "
+        f"ms (before/after); " + "; ".join(f"{r['shards']} shards {r['ms']:.4f} ms "
+                                           f"({r['ms'] / base:.2f}x)" for r in rows))
+    return rows, base, err
+
+
+def halo_regrid_phase(cut480, card):
+    """16 (b): halo values on an 8-way x mesh; ``sharded_regrid_bilinear``
+    of the first 168 h of the 480-column wind field onto 0.125 deg on a
+    (t=2, x=4) mesh against the serial ``regrid`` of the same hours."""
+    mesh = make_mesh(mesh_devices(N_SHARDS), t_axis=1)
+    X = 64
+    arr = torch.arange(X, dtype=torch.float32, device="cuda").repeat(2, 1, 1)
+    s = put_global(arr, NamedSharding(mesh, P(None, None, "x")))
+    ident = map_shards(lambda b: b[..., 2:-2], halo_exchange(s, 2)).gather()
+    left = map_shards(lambda b: b[..., :-2], halo_exchange(s, 1)).gather()
+    if not (torch.equal(ident, arr) and torch.equal(
+            left[0, 0].cpu(), torch.clamp(torch.arange(X) - 1, min=0).float())):
+        raise RuntimeError("halo_exchange: the trimmed halo or the left neighbours differ")
+    log("  halo_exchange on an 8-way x mesh: identity after trimming 2 columns, left "
+        "neighbours with the edge repeated at x=0: exact")
+    g = cut480.grid_desc
+    hours = REGRID_HOURS
+    src = np.asarray(cut480.data["wnd100m"][:hours])
+    dst_x = np.arange(g.x[0] + 0.0625, g.x[-1], 0.125)
+    dst_x = dst_x[:len(dst_x) - len(dst_x) % 4]
+    dst_y = np.arange(g.y[0] + 0.0625, g.y[-1], 0.125)
+    mesh = make_mesh(mesh_devices(N_SHARDS), t_axis=2)
+    t0 = time.perf_counter()
+    fn = sharded_regrid_bilinear(mesh, g.x, g.y, dst_x, dst_y)
+    setup_s = time.perf_counter() - t0
+    field = put_global(torch.as_tensor(src, device="cuda"), NamedSharding(mesh, field_spec()))
+    out = fn(field).gather()
+    ms = cuda_ms(lambda: fn(field), reps=5, warmup=1)
+    t0 = time.perf_counter()
+    serial = regrid(DataArray(src, coords={"time": g.time[:hours], "y": g.y, "x": g.x},
+                              dims=("time", "y", "x")), dst_x, dst_y, resampling="bilinear")
+    serial_s = time.perf_counter() - t0
+    log(f"  sharded_regrid_bilinear, (t=2, x=4), {hours} h x {len(g.y)} x {len(g.x)} onto "
+        f"{len(dst_y)} x {len(dst_x)} (0.125 deg): {ms:.3f} ms on {card} (CUDA events; "
+        f"matrices {setup_s * 1e3:.1f} ms of host set-up); the serial regrid {serial_s:.3f} s "
+        "on the host (float64)")
+    err = within_max("sharded regrid vs serial", out.cpu().numpy(), serial.values, GRID_TOL)
+    return {"name": "sharded_regrid_bilinear 0.125", "ms": ms, "serial_host_s": serial_s,
+            "max_abs_err": err, "shape": list(out.shape), "card": card}
+
+
+def banded_mesh_phase(cut480, matrix480, card):
+    """16 (c): ``sharded_aggregate_banded`` of the 480-column wind field
+    (MESH_HOURS h, NaN cells) with the (2048, C) region matrix on (t=2,
+    x=4), against the unsharded banded route."""
+    g = cut480.grid_desc
+    Y, X = len(g.y), len(g.x)
+    field = torch.as_tensor(np.asarray(cut480.data["wnd100m"][:MESH_HOURS]), device="cuda")
+    rng = np.random.default_rng(16)
+    field[torch.as_tensor(rng.integers(0, MESH_HOURS, 8)), torch.as_tensor(rng.integers(0, Y, 8)),
+          torch.as_tensor(rng.integers(0, X, 8))] = float("nan")
+    mesh = make_mesh(mesh_devices(N_SHARDS), t_axis=2)
+    t0 = time.perf_counter()
+    agg = sharded_aggregate_banded(mesh, matrix480, Y, X)
+    setup_s = time.perf_counter() - t0
+    fs = put_global(field, NamedSharding(mesh, field_spec()))
+    out = agg(fs).gather()
+    flat = field.reshape(MESH_HOURS, -1)
+    closure = aggregate.spmm_closure(matrix480)
+    want = closure(flat)
+    ms = cuda_ms(lambda: agg(fs), reps=10)
+    plain_ms = cuda_ms(lambda: closure(flat), reps=10)
+    nb, W, route = aggregation_route(matrix480)
+    b0 = agg.banded[0]
+    log(f"  sharded_aggregate_banded, (t=2, x=4), ({matrix480.shape[0]}, {Y * X}) over "
+        f"{MESH_HOURS} h: {ms:.3f} ms against the unsharded {route} route's {plain_ms:.3f} ms "
+        f"(nb={nb}, W={W}) on {card}; each x block's bands nb={b0['nb']} W={b0['W']}, host "
+        f"set-up {setup_s:.2f} s")
+    err = within_max("sharded banded vs unsharded, NaN cells", out.cpu().numpy(),
+                     want.cpu().numpy(), REL_TOL)
+    return {"name": "sharded_aggregate_banded", "ms": ms, "unsharded_ms": plain_ms,
+            "setup_s": setup_s, "max_abs_err": err, "card": card}
+
+
+def sharded_cutout_phase(cut480, matrix480, card):
+    """16 (d): ``cut.shard(mesh)``, then wind and PV with the region matrix,
+    resident, against the same calls unsharded; wall s and idle share
+    under torch.profiler; ``time_chunk`` must be refused."""
+    names = [n for n in cut480.data if n != "runoff"]
+    plain = sub_cutout(cut480, names, t1=MESH_HOURS, device="cuda")
+    sharded = sub_cutout(cut480, names, t1=MESH_HOURS, device="cuda")
+    mesh = make_mesh(mesh_devices(N_SHARDS))
+    sharded.shard(mesh)
+    calls = {"wind": lambda c: c.wind("Vestas_V112_3MW", matrix=matrix480, aggregate_time=None),
+             "pv": lambda c: c.pv(panel="CSi", orientation="latitude_optimal",
+                                  matrix=matrix480, aggregate_time=None)}
+    entries, err = [], 0.0
+    for name, fn in calls.items():
+        walls = {}
+        for label, c in (("unsharded", plain), ("sharded", sharded)):
+            t0 = time.perf_counter()
+            fn(c)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            res, wall, idle = timed_call(lambda: fn(c))
+            walls[label] = (cold, wall, idle, res.values)
+            where = (f"mesh t={mesh.shape['t']} x={mesh.shape['x']}" if label == "sharded"
+                     else "one device")
+            log(f"  {name} {label} ({where}): first call {cold:.3f} s (staging included), "
+                f"again {wall:.3f} s, {trace_note(idle)}")
+        err = max(err, within_max(f"{name} sharded vs unsharded", walls["sharded"][3],
+                                  walls["unsharded"][3], REL_TOL))
+        entries.append({"name": f"sharded cutout {name}", "card": card, "max_abs_err": err,
+                        **{f"{k}_{m}": v for k, (c0, w, i, _) in walls.items()
+                           for m, v in (("first_s", c0), ("wall_s", w),
+                                        ("busy_ms", None if i is None else i[0]),
+                                        ("idle", None if i is None else i[1]))}})
+    try:
+        sharded.wind("Vestas_V112_3MW", matrix=matrix480, aggregate_time=None, time_chunk=CHUNK)
+    except ValueError as exc:
+        log(f"  time_chunk on the sharded cutout refused: {exc}")
+    else:
+        raise RuntimeError("a sharded cutout streamed with time_chunk")
+    del plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entries, err
+
+
+def mesh_availability_phase(card):
+    """16 (e): phase 15's case (b) through ``availabilitymatrix(...,
+    mesh=)`` over N_SHARDS positions, against no mesh within 1e-6."""
+    small = Cutout(module="synthetic", bounds=AVAIL_BOUNDS, time="2013-01-01")
+    shapes = [box(x, y, x + 1.2, y + 1.3) for x in np.linspace(-4, 0.5, 5)[:4]
+              for y in np.linspace(56, 61, 4)[:3]]
+    x0, y0, x1, y1 = AVAIL_BOUNDS
+    exc = excluder_of(landuse_3035([x0, x0, x1, x1], [y0, y1, y0, y1], 100.0), 3035, 100.0)()
+    mesh = make_mesh(mesh_devices(N_SHARDS))
+    t0 = time.perf_counter()
+    one = small.availabilitymatrix(shapes, exc, backend="device").values
+    one_s = time.perf_counter() - t0
+    got, wall, idle = timed_call(lambda: small.availabilitymatrix(shapes, exc, backend="device",
+                                                                  mesh=mesh).values)
+    t0 = time.perf_counter()
+    small.availabilitymatrix(shapes, exc, backend="device")
+    warm_s = time.perf_counter() - t0
+    diff = float(np.abs(got - one).max())
+    log(f"  availabilitymatrix of (b), {len(shapes)} shapes padded to "
+        f"{-(-len(shapes) // mesh.size) * mesh.size} over {mesh.size} positions: {wall:.3f} s "
+        f"({trace_note(idle)}); no mesh {one_s:.3f} s cold, {warm_s:.3f} s warm; max abs diff "
+        f"{diff:.3e} (tolerance 1e-6) on {card}")
+    if not diff <= 1e-6:
+        raise RuntimeError(f"availability over the mesh is {diff} from the one without")
+    return {"name": "availability (b) over the mesh", "wall_s": wall, "one_device_cold_s": one_s,
+            "one_device_warm_s": warm_s, "max_abs_diff": diff,
+            "busy_ms": None if idle is None else idle[0],
+            "idle": None if idle is None else idle[1], "card": card}
+
+
+def two_process_phase(card):
+    """16 (f): two processes over gloo sharing the card, 4 mesh positions
+    each, on a small store under build/ (removed after): each reads its
+    half of "t", runs its shards on the card and gathers the results,
+    which must equal one process's (``core/multihost_worker.py``)."""
+    t0 = time.perf_counter()
+    results = _dryrun_multiprocess(N_SHARDS, 2, devices=mesh_devices(1), workdir=MESH_STORE)
+    wall = time.perf_counter() - t0
+    out = []
+    for i, (rc, text) in enumerate(results):
+        read = re.search(r"STORE OK \(read (\d+)/(\d+) bytes\)", text)
+        log(f"  process {i}: exit {rc}, read {read.group(1)} of {read.group(2)} bytes of the "
+            f"store; STEP, AGG, STORE and PIPELINE OK on {mesh_devices(1)[0]}")
+        out.append({"process": i, "exit": rc, "bytes_read": int(read.group(1)),
+                    "store_bytes": int(read.group(2))})
+    if MESH_STORE.exists():
+        raise RuntimeError(f"{MESH_STORE} was not removed")
+    log(f"  two processes on {card}: {wall:.1f} s from start to the last exit")
+    return {"name": "two processes sharing the card", "wall_s": wall, "workers": out,
+            "card": card}
+
+
+def multidevice_phase(cut, args, nan_args, card):
+    """Phase 16: multiple devices on the card (see the module docstring)."""
+    distinct = len(set(mesh_devices(N_SHARDS)))
+    log(f"multiple devices on {card}: the mesh is the {torch.cuda.device_count()} visible "
+        f"card(s) repeated to {N_SHARDS} positions, {distinct} distinct card(s) used")
+    step_rows, base_ms, err = sharded_step_phase(args, nan_args, card)
+    g = cut.grid_desc
+    cut480 = Cutout(data={n: np.asarray(a)[..., :MESH_X] for n, a in cut.data.items()},
+                    grid_desc=dataclasses.replace(g, x=g.x[:MESH_X]), attrs=dict(cut.attrs),
+                    var_attrs=dict(cut.var_attrs))
+    log(f"  the continental cut's first {MESH_X} of its {len(g.x)} columns (481 divide by no "
+        f"mesh x): {cut480.shape[0]} x {cut480.shape[1]}")
+    matrix480 = region_matrix(cut480, *CONT_REGIONS)
+    entries = [halo_regrid_phase(cut480, card), banded_mesh_phase(cut480, matrix480, card)]
+    cut_entries, cut_err = sharded_cutout_phase(cut480, matrix480, card)
+    entries += cut_entries
+    entries.append(mesh_availability_phase(card))
+    entries.append(two_process_phase(card))
+    return {"sharded_step": step_rows, "unsharded_step_ms": base_ms, "err": err,
+            "distinct_cards": distinct, "entries": entries, "card": card}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1873,8 +2188,13 @@ def main():
     t0 = time.perf_counter()
     availability = availability_phase(cut, card)
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multi = multidevice_phase(cut, args, nan_args, card)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"converters": converters}), flush=True)
     print(json.dumps({"availability": availability}), flush=True)
+    print(json.dumps({"multidevice": multi}), flush=True)
+    sharded8 = next(r for r in multi["sharded_step"] if r["shards"] == N_SHARDS)
 
     kernels = [{
         "name": "wind_pv_bus_megakernel",
@@ -1894,6 +2214,10 @@ def main():
         "enqueue_ms": enqueue_ms["step"],
         "matmul_only_ms": matmul_ms,
         "b256_ms": wide_ms,
+        "sharded_launches": sharded8["launches"],
+        "sharded_ms": sharded8["ms"],
+        "sharded_unsharded_ms": multi["unsharded_step_ms"],
+        "sharded_max_abs_err": multi["err"],
     }, bsr_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,9 @@
 """The port's public surface against the JAX package's: every public
-function of ``atlite_tpu.convert`` and of the GIS modules (``gis.exclusion``,
+function of ``atlite_tpu.convert``, of the GIS modules (``gis.exclusion``,
 ``gis.raster``, ``gis.regrid``, ``gis.kernels``, ``gis.geotiff``, their
-classes' methods included) has its counterpart with the same signature
-(port-only parameters listed); the top-level ``__all__`` and the
+classes' methods included), of ``core.mesh`` and ``core.comm``, and
+``__graft_entry__.dryrun_multichip`` has its counterpart with the same
+signature (port-only parameters listed); the top-level ``__all__`` and the
 ``gis`` namespace cover the JAX ones; and the public members of
 ``Cutout`` and ``DataArray`` are the JAX ones less an explicit list of
 names deferred to later slices, which each slice shortens.
@@ -37,10 +38,10 @@ from atlite_tpu_torch.gis.geometry import box
 torch.set_num_threads(1)
 
 # parameters only the port has: where its functions run
-PORT_ONLY = {"convert_line_rating": {"device"}}
+PORT_ONLY = {"convert_line_rating": {"device"}, "compute_availabilitymatrix": {"mesh"},
+             "global_mesh": {"devices"}, "dryrun_multichip": {"devices"}}
 # members of the JAX classes that later slices port (ROADMAP queue 1)
 DEFERRED_CUTOUT = {
-    "shard", "unshard",                                    # item 4
     "to_netcdf",                                           # item 5
 }
 DEFERRED_DATAARRAY = set()
@@ -59,15 +60,20 @@ def test_convert_has_every_public_function():
     assert set(public_functions(tconvert)) == set(JAX_FUNCTIONS)
 
 
-@pytest.mark.parametrize("name", sorted(JAX_FUNCTIONS))
-def test_convert_signature(name):
-    want = inspect.signature(JAX_FUNCTIONS[name])
-    got = inspect.signature(getattr(tconvert, name))
+def same_signature(got, want, name):
+    """``got`` has ``want``'s parameters (name, kind, default) in order,
+    besides the port-only ones of ``name``, which it must have."""
+    got, want = inspect.signature(got), inspect.signature(want)
     extra = PORT_ONLY.get(name, set())
     kept = [p for p in got.parameters.values() if p.name not in extra]
     assert [(p.name, p.kind, p.default) for p in kept] == \
         [(p.name, p.kind, p.default) for p in want.parameters.values()]
     assert extra <= set(got.parameters)
+
+
+@pytest.mark.parametrize("name", sorted(JAX_FUNCTIONS))
+def test_convert_signature(name):
+    same_signature(getattr(tconvert, name), JAX_FUNCTIONS[name], name)
 
 
 GIS_MODULES = ["exclusion", "raster", "regrid", "kernels", "geotiff"]
@@ -105,8 +111,36 @@ def test_gis_module_has_every_public_callable(mod):
 def test_gis_signature(mod, name):
     want = public_callables(importlib.import_module(f"atlite_tpu.gis.{mod}"))[name]
     got = public_callables(importlib.import_module(f"atlite_tpu_torch.gis.{mod}"))[name]
-    assert [(p.name, p.kind, p.default) for p in inspect.signature(got).parameters.values()] == \
-        [(p.name, p.kind, p.default) for p in inspect.signature(want).parameters.values()]
+    same_signature(got, want, name)
+
+
+CORE_MODULES = ["mesh", "comm"]
+CORE_FUNCTIONS = [(mod, name) for mod in CORE_MODULES for name in sorted(public_functions(
+    importlib.import_module(f"atlite_tpu.core.{mod}")))]
+
+
+@pytest.mark.parametrize("mod", CORE_MODULES)
+def test_core_module_has_every_public_function(mod):
+    want = public_functions(importlib.import_module(f"atlite_tpu.core.{mod}"))
+    got = public_functions(importlib.import_module(f"atlite_tpu_torch.core.{mod}"))
+    assert set(want) <= set(got)
+
+
+@pytest.mark.parametrize("mod, name", CORE_FUNCTIONS,
+                         ids=[f"{m}.{n}" for m, n in CORE_FUNCTIONS])
+def test_core_signature(mod, name):
+    want = public_functions(importlib.import_module(f"atlite_tpu.core.{mod}"))[name]
+    got = public_functions(importlib.import_module(f"atlite_tpu_torch.core.{mod}"))[name]
+    same_signature(got, want, name)
+
+
+def test_dryrun_multichip_signature():
+    import __graft_entry__ as ge
+    import atlite_tpu_torch.entry  # noqa: F401  (the module; the package exports entry())
+    import sys
+
+    same_signature(sys.modules["atlite_tpu_torch.entry"].dryrun_multichip, ge.dryrun_multichip,
+                   "dryrun_multichip")
 
 
 def test_top_level_and_gis_namespaces_cover_jax():

@@ -2,8 +2,8 @@
 (``gis.kernels.availability_matrix_device``), run on the CPU, against the
 JAX package's device path (``atlite_tpu.gis.kernels``, JAX on the CPU with
 x64 off, float32 as on its chip), on the cases of tests/test_gis_kernels.py
-but its two shape-sharded ones, which wait for the multi-GPU slice (the
-port's ``mesh=`` raises).
+(its two shape-sharded ones, ``mesh=``, are in
+tests/test_torch_sharded_cutout.py).
 
 On every case the fine masks themselves are compared: the rasterized
 shapes (``rasterize_shapes``) and the shapes AND NOT the exclusion mask
@@ -421,10 +421,19 @@ def test_callable_codes_full_lattice(pair):
 
 
 def test_mesh_waits_for_the_multi_gpu_slice(pair):
+    """The multi-GPU slice has come: ``mesh=`` takes a ``core.mesh.Mesh``
+    (two devices here; the sharded cases of tests/test_gis_kernels.py are
+    in tests/test_torch_sharded_cutout.py) and refuses anything else."""
+    from atlite_tpu_torch.core.mesh import make_mesh
+
     _, tc = pair
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="Mesh"):
         TK.availability_matrix_device(tc, TWO, texcl.ExclusionContainer(4326, res=0.01),
                                       mesh=object())
+    want = TK.availability_matrix_device(tc, TWO, texcl.ExclusionContainer(4326, res=0.01))
+    got = TK.availability_matrix_device(tc, TWO, texcl.ExclusionContainer(4326, res=0.01),
+                                        mesh=make_mesh([torch.device("cpu")] * 2))
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
 def test_dropped_pixels_redo_the_block_on_the_host(pair, monkeypatch, caplog):

@@ -201,6 +201,12 @@ for table in (r, reopened.grid):
         assert "refused: pandas" in str(exc)
     else:
         raise AssertionError("to_pandas ran without pandas")
+from atlite_tpu_torch.core.mesh import make_mesh
+atlite_tpu_torch.dryrun_multichip(8, devices=[torch.device("cpu")])
+c.shard(make_mesh([torch.device("cpu")] * 4))
+sh = c.wind("Vestas_V112_3MW", matrix=m, aggregate_time=None).values
+c.unshard()
+assert np.abs(sh - c.wind("Vestas_V112_3MW", matrix=m, aggregate_time=None).values).max() < 1e-3
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not loaded, loaded
 print("PORT RUNS ALONE")
@@ -214,9 +220,10 @@ def test_port_runs_without_jax_and_pandas():
     irradiation, the BSR entry, the C++ geometry engine, wind and PV by
     shapes (with a layout), a smoothed turbine read by its Path, hydro,
     line rating, the availability matrix (device path on the CPU and host
-    path), ``regrid`` of a field held in a tensor, and a store written by
-    ``prepare``, reopened and streamed, run with jax, atlite_tpu, pandas,
-    yaml and rasterio refused;
+    path), ``regrid`` of a field held in a tensor, a store written by
+    ``prepare``, reopened and streamed, ``dryrun_multichip`` and a sharded
+    Cutout on CPU devices, run with jax, atlite_tpu, pandas, yaml and
+    rasterio refused;
     ``to_pandas`` asks for pandas only when it is called."""
     out = subprocess.run(
         [sys.executable, "-c", BLOCKER.format(banned=BANNED)],
