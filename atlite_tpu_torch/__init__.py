@@ -6,7 +6,9 @@ in memory or reopened from its ``.atc`` store (``core/store.py``), runs
 every converter through ``convert_and_aggregate``, resident or streamed in
 time chunks with banded aggregation; ``ops/bsr_spmm.bsr_spmm_kernel`` is the
 block-sparse aggregation entry (``ops/csrc/bsr_spmm.cu``); the availability
-(land-eligibility) matrix runs batched on the card (``gis/kernels.py``).  On the CPU the
+(land-eligibility) matrix runs batched on the card (``gis/kernels.py``); weather comes from
+the port's own GRIB/NetCDF/HDF5 codecs (``io/``) through the era5, sarah and gebco dataset
+modules, and cutouts persist as NetCDF files too (``Cutout.to_netcdf``).  On the CPU the
 same entry points run the plain PyTorch modules, which the tests hold
 against the JAX package.  Module names follow ``atlite_tpu`` so each
 function's counterpart is found under the same path.

@@ -14,17 +14,21 @@ aggregation matrices and layouts from shapes (``indicatormatrix``,
 ``intersectionmatrix``, ``area`` and the three layouts), the availability
 matrix, the grid's metadata, ``sel``/``merge``/``equals`` and the store
 (``prepare`` checkpoints each feature into it, ``to_file`` writes it).
+A path ending in ``.nc`` is a NetCDF cutout (NETCDF4 or NetCDF-3, atlite's
+own format): ``Cutout("x.nc")`` loads it whole into host arrays, and
+``to_netcdf`` (or ``to_file``/``prepare`` on such a path) rewrites it
+whole through a temporary file.
 ``shard(mesh)`` spreads the cutout over a ("t", "x") mesh of devices
 (``core/mesh.py``): each mesh position gets a sub-cutout of a time slice
 and an x slice, staged as ``isel_time`` stages one, and the converters
-run block by block.  NetCDF files wait for a later slice (ROADMAP queue
-1, item 5).
+run block by block.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import shutil
 import tempfile
 import warnings
@@ -60,9 +64,10 @@ class Cutout:
     """Weather-data cutout on one device.
 
     ``Cutout(path)`` reopens the ``.atc`` store at ``path`` (the suffix is
-    added), its arrays memory-mapped; ``Cutout(path, module=..., x=...,
-    y=..., time=...)`` on a new path makes a cutout that ``prepare``
-    writes there.  Without a path: ``Cutout(module=..., x=..., y=...,
+    added unless it is ``.nc``), its arrays memory-mapped, or reads the
+    NetCDF cutout at a ``.nc`` path into memory; ``Cutout(path,
+    module=..., x=..., y=..., time=...)`` on a new path makes a cutout that
+    ``prepare`` writes there.  Without a path: ``Cutout(module=..., x=..., y=...,
     time=..., dx=..., dy=...)`` (or ``bounds=(x1, y1, x2, y2)``) makes an
     in-memory cutout; ``Cutout(data=..., grid_desc=...)`` wraps prepared
     arrays.  ``device`` defaults to the current CUDA card and raises
@@ -72,11 +77,8 @@ class Cutout:
     def __init__(self, path=None, device=None, **cutoutparams):
         if path is not None:
             path = Path(path)
-            if path.suffix == ".nc":
-                raise NotImplementedError(
-                    "NetCDF cutouts are not ported yet (ROADMAP queue 1, item 5: file formats "
-                    "and dataset modules); use an .atc store")
-            path = path.with_suffix(".atc")
+            if path.suffix != ".nc":
+                path = path.with_suffix(".atc")
         self.device = resolve_device(device)
         self.dtype = np.dtype(cutoutparams.pop("dtype", "float32"))
         if self.dtype not in _TORCH_DTYPE:
@@ -90,7 +92,10 @@ class Cutout:
         self._mesh = None  # set by shard()
 
         if path is not None and path.exists():
-            grid_kwargs, stored, attrs, var_attrs = read_store(path)
+            if path.suffix == ".nc":
+                grid_kwargs, stored, attrs, var_attrs = _read_netcdf_cutout(path)
+            else:
+                grid_kwargs, stored, attrs, var_attrs = read_store(path)
             self.grid_desc = Grid(**grid_kwargs)
             self.data = dict(stored)
             self.attrs = dict(attrs)
@@ -238,14 +243,19 @@ class Cutout:
         """Generate the missing features from the cutout's dataset
         module(s); floating variables are stored in the cutout's dtype with
         their range (``pack_min``/``pack_max``) for packing.  A cutout with
-        a path checkpoints each feature into its store (``update_store``:
-        that feature's files and the manifest).  An already prepared cutout
-        returns at once.  ``compression`` applies to NetCDF files (not
-        ported) and ``dask_kwargs``/``show_progress`` to nothing; the rest
-        go to the dataset module."""
-        del dask_kwargs, show_progress, compression
+        an ``.atc`` path checkpoints each feature into its store
+        (``update_store``: that feature's files and the manifest); one with
+        a ``.nc`` path is written whole once, after the last feature.  An
+        already prepared cutout returns at once.  ``compression`` is the
+        NetCDF encoding (default zlib level 9 with shuffle) and
+        ``dask_kwargs``/``show_progress`` go to nothing; the rest go to the
+        dataset module."""
+        del dask_kwargs, show_progress
         if data_format is not None:
             params.setdefault("data_format", data_format)
+        if compression is None:
+            compression = {"zlib": True, "complevel": 9, "shuffle": True}
+        self._nc_compression = compression
         params.setdefault("monthly_requests", monthly_requests)
         params.setdefault("concurrent_requests", concurrent_requests)
         if tmpdir is None:
@@ -253,7 +263,7 @@ class Cutout:
             tmpdir = tempfile.mkdtemp(prefix="atlite_tpu_torch_prepare")
             try:
                 return self.prepare(features=features, tmpdir=tmpdir, overwrite=overwrite,
-                                    **params)
+                                    compression=compression, **params)
             finally:
                 shutil.rmtree(tmpdir, ignore_errors=True)
         if self.prepared and not overwrite:
@@ -262,6 +272,7 @@ class Cutout:
         features = set(np.atleast_1d(features)) if features is not None else None
         prepared = set(self.prepared_features.index)
         written = set()  # module-priority guard under overwrite
+        wrote_any = False
         for module in np.atleast_1d(self.module):
             mod = datamodules[module]
             target = set(mod.features) if features is None else features & set(mod.features)
@@ -295,24 +306,76 @@ class Cutout:
                 pf = set(np.atleast_1d(self.attrs.get("prepared_features", [])))
                 self.attrs["prepared_features"] = sorted(pf | {feature})
                 self._invalidate()
-                if self.path is not None:
+                wrote_any = True
+                if self.path is not None and self.path.suffix != ".nc":
                     self.to_file(update_vars=new_vars)
+        if self.path is not None and self.path.suffix == ".nc" and wrote_any:
+            self.to_file()
         return self
 
     def to_file(self, fn=None, update_vars=None):
-        """Write the cutout to its ``.atc`` store (or to ``fn``, as given).
-        With ``update_vars`` only those variables and the manifest are
-        written (``update_store``)."""
+        """Write the cutout to its ``.atc`` store (or to ``fn``, as given),
+        or to a NetCDF file where the path ends in ``.nc``.  With
+        ``update_vars`` only those variables and the manifest of a store are
+        written (``update_store``); a ``.nc`` file is rewritten whole."""
         fn = self.path if fn is None else Path(fn)
         if fn is None:
             raise ValueError("cutout has no path; pass fn=")
         if fn.suffix == ".nc":
-            raise NotImplementedError("NetCDF files are not ported yet (ROADMAP queue 1, "
-                                      "item 5: file formats and dataset modules)")
-        if update_vars is not None:
+            self.to_netcdf(fn)
+        elif update_vars is not None:
             update_store(fn, self.grid_desc, self.data, self.attrs, self.var_attrs, update_vars)
         else:
             write_store(fn, self.grid_desc, self.data, self.attrs, self.var_attrs)
+
+    def to_netcdf(self, fn, format="NETCDF4", compression=None):
+        """Write an atlite-compatible NetCDF cutout.
+
+        The default is atlite's on-disk format: zlib-compressed
+        netCDF4/HDF5, ``compression`` the xarray encoding dict (default
+        the one ``prepare`` was given, else ``{"zlib": True, "complevel":
+        9, "shuffle": True}`` as atlite's data.py:139 applies; ``zlib:
+        False`` stores level-0 deflate).  ``format="NETCDF3_64BIT"`` emits
+        uncompressed CDF-2, list attrs joined by ", ".  The file is written
+        beside ``fn`` and renamed onto it."""
+        from atlite_tpu_torch.io.netcdf import write_netcdf
+
+        netcdf4 = format.upper().startswith("NETCDF4")
+        if compression is None:
+            compression = getattr(self, "_nc_compression", None)
+        enc_kwargs = {}
+        if netcdf4 and compression:
+            if not compression.get("zlib", True):
+                enc_kwargs["complevel"] = 0
+            else:
+                enc_kwargs["complevel"] = int(compression.get("complevel", 4))
+            enc_kwargs["shuffle"] = bool(compression.get("shuffle", False))
+        g = self.grid_desc
+        fn = Path(fn)
+        dims = {"time": len(g.time), "y": len(g.y), "x": len(g.x)}
+        variables = {
+            "x": (("x",), np.asarray(g.x, dtype="float64"), {}),
+            "y": (("y",), np.asarray(g.y, dtype="float64"), {}),
+            "time": (("time",), np.asarray(g.time), {}),
+        }
+        for name, arr in self.data.items():
+            va = dict(self.var_attrs.get(name, {}))
+            dnames = tuple(va.pop("dims", ("time", "y", "x")))
+            va = {k: v for k, v in va.items() if isinstance(v, (str, int, float))}
+            variables[name] = (dnames, np.asarray(arr), va)
+        attrs = {}
+        for k, v in self.attrs.items():
+            if k in ("prepared_features", "module") and not netcdf4:
+                # NetCDF-3 attributes hold no string lists: a merged
+                # multi-module cutout's module=['sarah', 'era5'] is joined
+                v = ", ".join(np.atleast_1d(v))
+            if isinstance(v, (str, int, float, np.integer, np.floating, bool)):
+                attrs[k] = v
+            elif netcdf4 and isinstance(v, (list, tuple, np.ndarray)):
+                attrs[k] = v
+        tmp = fn.with_name(fn.name + ".tmp")
+        write_netcdf(tmp, dims, variables, attrs=attrs, format=format, **enc_kwargs)
+        os.replace(tmp, fn)
 
     # -------------------------------------------------------------- device
     def _put(self, arr, dtype):
@@ -738,6 +801,73 @@ class Cutout:
     runoff = convert.runoff
     hydro = convert.hydro
     line_rating = convert.line_rating
+
+
+def _read_netcdf_cutout(path):
+    """Load an atlite-format NetCDF cutout into (grid_kwargs, data, attrs,
+    var_attrs), the tuple the ``.atc`` store loader returns.
+
+    Both axes come out ascending (ERA5 ships descending latitude; atlite
+    sorts through maybe_swap_spatial_dims, its gis.py:765-779), lon/lat
+    names read as x/y, a comma-joined multi-module attr is split, CF
+    packed variables are unpacked, and each variable gets the
+    module/feature attrs atlite's preparation stamps (data.py:62-67)."""
+    from atlite_tpu_torch.io.netcdf import read_netcdf, unpack_cf
+
+    dims, variables, attrs = read_netcdf(path)
+    ren = {"lon": "x", "longitude": "x", "lat": "y", "latitude": "y"}
+    variables = {ren.get(k, k): (tuple(ren.get(d, d) for d in dn), arr, va)
+                 for k, (dn, arr, va) in variables.items()}
+    for c in ("x", "y", "time"):
+        if c not in variables:
+            raise ValueError(f"{path}: NetCDF cutout lacks coordinate {c!r}")
+    x = np.asarray(variables.pop("x")[1], dtype=float)
+    y = np.asarray(variables.pop("y")[1], dtype=float)
+    tvals = variables.pop("time")[1]
+    if np.asarray(tvals).dtype.kind != "M":
+        raise ValueError(f"{path}: time coordinate is not CF-decodable")
+    flip_y = len(y) > 1 and y[0] > y[-1]
+    if flip_y:
+        y = y[::-1].copy()
+    flip_x = len(x) > 1 and x[0] > x[-1]
+    if flip_x:
+        x = x[::-1].copy()
+
+    attrs = dict(attrs)
+    pf = attrs.get("prepared_features", [])
+    if isinstance(pf, str):
+        pf = [s for s in (t.strip() for t in pf.split(",")) if s]
+    attrs["prepared_features"] = list(np.atleast_1d(pf))
+    module = attrs.get("module")
+    if isinstance(module, str) and "," in module:
+        module = [s for s in (t.strip() for t in module.split(",")) if s]
+        attrs["module"] = module
+    feature_of = {}
+    if module is not None:
+        for m in np.atleast_1d(module):
+            for feat, vars_ in datamodules[m].features.items():
+                for v in vars_:
+                    feature_of.setdefault(v, (m, feat))
+
+    data, var_attrs = {}, {}
+    for name, (dnames, arr, va) in variables.items():
+        arr, va = unpack_cf(arr, va)
+        arr = np.asarray(arr)
+        if "y" in dnames and flip_y:
+            arr = np.flip(arr, axis=dnames.index("y")).copy()
+        if "x" in dnames and flip_x:
+            arr = np.flip(arr, axis=dnames.index("x")).copy()
+        va = dict(va)
+        mod_feat = feature_of.get(name, (None, None))
+        var_attrs[name] = {
+            "dims": list(dnames),
+            "module": va.pop("module", mod_feat[0]),
+            "feature": va.pop("feature", mod_feat[1]),
+            **{k: v for k, v in va.items() if isinstance(v, (str, int, float))},
+        }
+        data[name] = arr
+    grid_kwargs = dict(x=x, y=y, time=np.asarray(tvals, dtype="datetime64[ns]"), crs=4326)
+    return grid_kwargs, data, attrs, var_attrs
 
 
 def _derive_solar_trig(cache):

@@ -3,9 +3,18 @@
 
 Each module exposes ``crs``, ``features`` (feature -> list of variables),
 ``static_features`` and ``get_data(cutout, feature, tmpdir=None,
-**params)``.  Only the deterministic offline generator is ported.
+**params)``: ``era5`` (CDS retrieval or offline GRIB/NetCDF files),
+``sarah`` (satellite irradiance archives), ``gebco`` (elevation raster)
+and ``synthetic``, the deterministic offline generator.  ``ncep`` and
+``cordex`` are importable placeholders outside the registry, as in the
+JAX package.
 """
 
-from atlite_tpu_torch.datasets import synthetic
+from atlite_tpu_torch.datasets import era5, gebco, sarah, synthetic
 
-modules = {"synthetic": synthetic}
+modules = {
+    "era5": era5,
+    "sarah": sarah,
+    "gebco": gebco,
+    "synthetic": synthetic,
+}

@@ -138,9 +138,36 @@ Phases, in order; any failure exits non-zero:
      (b) against no mesh within 1e-6; (f) two processes sharing the card
      over gloo (``core/comm.py``, ``core/multihost_worker.py``) on a small
      store under build/ (removed after): each reads half of the store's
-     bytes and its results equal one process's; their exit codes.
+     bytes and its results equal one process's; their exit codes;
+ 17. ERA5-format files through the port's codecs and ``prepare``: (a) from
+     the continental cut's first 720 h (one monthly CDS request) the raw
+     ERA5 variables whose derivations give its fields, written by the
+     port's encoders under build/ (wind as GRIB1 16-bit simple packing,
+     influx as the classic CDS NETCDF4: CF int16, zlib, latitude
+     descending; temperature and runoff as GRIB2; height as one static
+     GRIB1 message); (b) ``Cutout(path, module="era5", ...)`` and
+     ``prepare`` feature by feature into an .atc store: decode MB/s (the
+     decoder timed inside prepare), wall s a feature, the card's idle
+     share (1: it is host work), peak host memory; (c) every decoded
+     field within half a quantization step of what was encoded (the step
+     worked out from each message's packing), NaN masks equal, y
+     ascending, the store's variables equal the era5 derivations of the
+     decoded arrays bit for bit; (d) ``wind``/``pv`` with phase 10's
+     matrix from the reopened store on the card, resident and streamed
+     int16: the first 48 h against the CPU within phase 10's bounds, int16
+     against resident within phase 10's int16 bounds, resident against
+     phase 10's series of the synthetic cut within a bound from the
+     quantization (wind: an interval bound through the log law and the
+     power curve, rigorous; PV: first order, doubled); (e) ``to_netcdf``
+     of the prepared cutout (NETCDF4, zlib level 1, shuffle), s and GB/s,
+     reopened from the .nc on the card: fields and the wind series equal
+     (d)'s bit for bit; (f) a SARAH archive of SIS/SID NETCDF4 files
+     (0.05 deg, 10 x 10 deg, a day of half hours, NaN gaps) prepared onto
+     0.25 deg with the synthetic module's temperature and albedo, PV on
+     the card against the CPU.  The files are removed after.
 Then one JSON line of the converters, one of availability, one of the
-multi-device phase, one of kernels and, last, the result line.
+multi-device phase, one of ingest, one of kernels and, last, the result
+line.
 """
 
 from __future__ import annotations
@@ -157,6 +184,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -181,6 +209,8 @@ from atlite_tpu_torch import convert as conv
 from atlite_tpu_torch.convert import convert_wind
 from atlite_tpu_torch.core import store
 from atlite_tpu_torch.core.grid import Affine
+from atlite_tpu_torch.datasets import era5 as era5_module
+from atlite_tpu_torch.datasets import synthetic
 from atlite_tpu_torch.core.mesh import (
     NamedSharding,
     P,
@@ -213,8 +243,11 @@ from atlite_tpu_torch.gis import kernels as avail_kernels
 from atlite_tpu_torch.gis.crs import transform_points
 from atlite_tpu_torch.gis.geometry import LineString, box
 from atlite_tpu_torch.gis.raster import Raster
+from atlite_tpu_torch.io import grib
+from atlite_tpu_torch.io import netcdf as ncio
 from atlite_tpu_torch.physics import hydro as hydro_physics
 from atlite_tpu_torch.physics import line_rating as line_rating_physics
+from atlite_tpu_torch.physics import wind as wind_physics
 from atlite_tpu_torch.resource import get_windturbineconfig
 
 BENCH_SHAPE = (2184, 96, 128, 20)
@@ -432,11 +465,16 @@ def aggregation_route(matrix):
     return nb, W, route
 
 
+def continental_kw(time):
+    """The continental grid's Cutout arguments over ``time``."""
+    return dict(x=slice(-12, 18 + CONT_DX / 2), y=slice(35, 60 + CONT_DY / 2), dx=CONT_DX,
+                dy=CONT_DY, time=time)
+
+
 def continental_inputs():
     """Phase 9: the continental Cutout and region matrix."""
     t0 = time.perf_counter()
-    cut = Cutout(module="synthetic", x=slice(-12, 18 + CONT_DX / 2),
-                 y=slice(35, 60 + CONT_DY / 2), dx=CONT_DX, dy=CONT_DY, time=CONT_TIME)
+    cut = Cutout(module="synthetic", **continental_kw(CONT_TIME))
     cut.prepare(features=["wind", "influx", "temperature", "runoff", "height"])
     T, (Y, X) = len(cut.grid_desc.time), cut.shape
     C = Y * X
@@ -1983,6 +2021,590 @@ def multidevice_phase(cut, args, nan_args, card):
             "distinct_cards": distinct, "entries": entries, "card": card}
 
 
+# phase 17: ERA5-format files at the size of one monthly CDS request,
+# written by the port's own encoders, through prepare to bus series on
+# the card; a NetCDF cutout; a SARAH archive
+INGEST_DIR = Path(__file__).resolve().parent / "build" / "ingest_phase"
+# one monthly CDS request (era5.retrieval_times(monthly_requests=True)) is 30
+# days; at 30 the phase took 458.5-581.8 s on the card's host in two runs
+# (tools/ingest_probe.py --days 30), most of it host codecs that scale with the
+# hours, so it is cut to 8 days to stay near 150 s
+INGEST_DAYS = 8
+INGEST_NBITS = 16           # GRIB simple packing, the width CDS ships ERA5 single levels in
+# the streamed calls' chunk: several chunks a call, as phase 10 has, since the
+# trace may drop a chunk's pinned transfer and the staging gate needs one
+INGEST_CHUNK = 48
+NC_ENCODING = {"zlib": True, "complevel": 1, "shuffle": True}
+NC_FILL = np.int16(-32767)
+# the format of each feature's file (its variables: era5_raw)
+INGEST_FORMATS = {"wind": "GRIB1", "influx": "NETCDF4", "temperature": "GRIB2",
+                  "runoff": "GRIB2", "height": "GRIB1"}
+INT16_REL = {"wind": {"max": 3e-3}, "pv": {"p999": 3e-3, "max": 2e-2}}  # phase 10's bounds
+PV_INPUTS = ("influx_direct", "influx_diffuse", "influx_toa", "albedo", "temperature")
+SARAH_BOX = (0.0, 10.0, 45.0, 55.0)  # x0, x1, y0, y1 at SARAH's 0.05 deg: 200 x 200 pixels
+SARAH_DAY = "2013-06-21"
+SARAH_SCALE = 0.05          # W/m2 a code, as the archive's int16 SIS/SID
+
+
+def era5_raw(cut, feature, hours):
+    """{shortName: float64 (T, Y, X) or (Y, X)} of the raw ERA5 variables
+    whose derivations give the cut's fields (ascending y): u/v from speed
+    and azimuth, 10 m through the shear exponent, the accumulations in J
+    m**-2 over the hour (soil temperature keeps the cut's NaN over the
+    sea, as ERA5's land fields), geopotential from height."""
+    def f(name):
+        a = cut.data[name]
+        return np.asarray(a[:hours] if np.ndim(a) == 3 else a, dtype=np.float64)
+
+    if feature == "wind":
+        w, az = f("wnd100m"), f("wnd_azimuth")
+        w10 = w * 0.1 ** f("wnd_shear_exp")
+        return {"u100": w * np.sin(az), "v100": w * np.cos(az), "u10": w10 * np.sin(az),
+                "v10": w10 * np.cos(az), "fsr": f("roughness")}
+    if feature == "influx":
+        direct, diffuse = f("influx_direct"), f("influx_diffuse")
+        ssrd = (direct + diffuse) * 3600.0
+        return {"ssrd": ssrd, "ssr": ssrd * (1.0 - f("albedo")),
+                "tisr": f("influx_toa") * 3600.0, "fdir": direct * 3600.0}
+    if feature == "temperature":
+        return {"t2m": f("temperature"), "stl4": f("soil temperature"),
+                "d2m": f("dewpoint temperature")}
+    if feature == "runoff":
+        return {"ro": f("runoff")}
+    return {"z": f("height") * era5_module.G0}
+
+
+def grib_half_steps(a, edition):
+    """(T,) bound on |decoded - encoded| of each message of ``a`` (T, Y,
+    X), worked out from its simple packing as the encoder chooses it: half
+    the binary step 2**E (the range over 2**16 - 1 codes), plus what the
+    reference value loses to its own format (IBM 32-bit in GRIB1, IEEE
+    float32 in GRIB2: values below it clip to code 0), plus float64
+    rounding of ref + code * 2**E."""
+    flat = a.reshape(len(a), -1)
+    vmin, vmax = np.nanmin(flat, axis=1), np.nanmax(flat, axis=1)
+    out = np.empty(len(a))
+    for t, (lo, hi) in enumerate(zip(vmin, vmax)):
+        e = int(np.ceil(np.log2((hi - lo) / (2**INGEST_NBITS - 1)))) if hi > lo else 0
+        ref = (grib._ibm32_decode(grib._ibm32_encode(lo)) if edition == 1
+               else float(np.float32(lo)))
+        out[t] = 2.0**e / 2 + abs(ref - lo) + 4 * np.finfo(float).eps * max(abs(lo), abs(hi))
+    return out
+
+
+def write_grib(path, raw, lats, lons, times, edition):
+    """GRIB messages hour by hour, latitude descending as CDS delivers;
+    accumulated runoff as an interval product (template 4.8 in GRIB2).
+    Returns {short: (T,) half-step bounds}, the message count."""
+    encode = grib.encode_grib1 if edition == 1 else grib.encode_grib2
+    n = 0
+    with open(path, "wb") as fh:
+        for t in range(len(times)):
+            recs = []
+            for short, a in raw.items():
+                rec = {"shortName": short, "values": (a[t] if a.ndim == 3 else a)[::-1],
+                       "lats": lats[::-1], "lons": lons, "valid_time": times[t],
+                       "nbits": INGEST_NBITS}
+                if short == "ro" and edition == 2:
+                    rec["interval_hours"] = 1
+                recs.append(rec)
+            fh.write(encode(recs))
+            n += len(recs)
+    return {s: grib_half_steps(a if a.ndim == 3 else a[None], edition)
+            for s, a in raw.items()}, n
+
+
+def write_cds_netcdf(path, raw, lats, lons, times):
+    """The classic CDS NetCDF: valid_time/latitude (descending)/longitude,
+    each variable int16 with scale_factor and add_offset over its range
+    (65532 steps, the offset at its centre) and _FillValue, zlib with
+    shuffle.  The offset is summed as lo + 32766 * scale, so that code
+    -32766 decodes to lo exactly: a dark hour's 0 J stays 0 (else the
+    albedo (ssrd - ssr) / ssrd of night hours is a ratio of two rounding
+    residues).  Returns {short: half-step bound} (a scalar a variable)."""
+    variables = {"valid_time": (("valid_time",), times, {"standard_name": "time"}),
+                 "latitude": (("latitude",), lats[::-1], {"units": "degrees_north"}),
+                 "longitude": (("longitude",), lons, {"units": "degrees_east"})}
+    bounds = {}
+    for short, a in raw.items():
+        lo, hi = float(np.nanmin(a)), float(np.nanmax(a))
+        scale = (hi - lo) / 65532 if hi > lo else 1.0
+        offset = lo + 32766 * scale
+        codes = np.rint((a[:, ::-1] - offset) / scale)
+        codes[np.isnan(codes)] = NC_FILL
+        variables[short] = (("valid_time", "latitude", "longitude"), codes.astype(np.int16),
+                            {"scale_factor": scale, "add_offset": offset, "_FillValue": NC_FILL,
+                             "units": "J m**-2"})
+        bounds[short] = scale / 2 + 4 * np.finfo(float).eps * max(abs(lo), abs(hi))
+    ncio.write_netcdf(path, {"valid_time": len(times), "latitude": len(lats),
+                             "longitude": len(lons)}, variables,
+                      {"Conventions": "CF-1.7", "institution": "ECMWF"}, format="NETCDF4",
+                      complevel=NC_ENCODING["complevel"], shuffle=NC_ENCODING["shuffle"])
+    return bounds
+
+
+class PeakRSS:
+    """Peak resident set of this process over a block, sampled every 20 ms
+    from /proc/self/statm (the kernel's high-water mark covers the whole
+    process, and writing clear_refs to reset it is refused on the card's
+    machine); ``start`` is the resident set on entry."""
+
+    def __enter__(self):
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss():
+        with open("/proc/self/statm", encoding="utf-8") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        return False
+
+
+ERA5_DERIVE = {
+    "wind": lambda s, g: era5_module.sanitize_wind(era5_module.derive_wind(
+        s["u100"], s["v100"], s["u10"], s["v10"], s["fsr"])),
+    "influx": lambda s, g: era5_module.sanitize_influx(era5_module.derive_influx(
+        s["ssrd"], s["ssr"], s["tisr"], s["fdir"], g.time_index, g.x, g.y)),
+    "temperature": lambda s, g: {"temperature": s["t2m"], "soil temperature": s["stl4"],
+                                 "dewpoint temperature": s["d2m"]},
+    "runoff": lambda s, g: era5_module.sanitize_runoff({"runoff": s["ro"]}),
+    "height": lambda s, g: {"height": era5_module.derive_height(s["z"])},
+}
+
+
+def check_decoded(feature, raw, decoded, coords, bounds):
+    """Raise unless every decoded field lies within its half step of the
+    encoded field, NaN masks equal, y ascending; returns the worst
+    |decoded - encoded| / bound."""
+    y = coords["y"]
+    if not (np.diff(y) > 0).all():
+        raise RuntimeError(f"{feature}: decoded y is not ascending")
+    worst = 0.0
+    for short, a in raw.items():
+        got = decoded[short][0] if a.ndim == 2 else decoded[short]
+        if got.shape != a.shape or not np.array_equal(np.isnan(got), np.isnan(a)):
+            raise RuntimeError(f"{feature} {short}: shape {got.shape} or NaN mask differs")
+        b = np.asarray(bounds[short])
+        b = b.reshape((-1,) + (1,) * (a.ndim - 1)) if b.ndim else b
+        if a.ndim == 2:
+            b = b[0]
+        ratio = np.nanmax(np.abs(got - a) / b)
+        if not ratio <= 1.0:
+            raise RuntimeError(f"{feature} {short}: decoded {ratio:.4f} half steps away")
+        worst = max(worst, float(ratio))
+    return worst
+
+
+def check_derived(feature, era, decoded, coords):
+    """Raise unless the store's variables of ``feature`` equal the era5
+    derivations applied to the decoded raw arrays, bit for bit, in the
+    store's dtype."""
+    g = era.grid_desc
+    shorts = era5_module.FEATURE_SHORTNAMES[feature]
+    if feature in era5_module.static_features:
+        sub = {k: era5_module._align_static(decoded[k], coords, g) for k in shorts}
+    else:
+        sub = era5_module._align({k: decoded[k] for k in shorts}, coords, g)
+    for name, arr in ERA5_DERIVE[feature](sub, g).items():
+        want = np.asarray(arr).astype(era.dtype)
+        if not np.array_equal(np.asarray(era.data[name]), want, equal_nan=True):
+            raise RuntimeError(f"{feature}: stored {name!r} differs from the derivation of "
+                               "the decoded arrays")
+
+
+def wind_interval_bound(syn, bounds, turbine):
+    """(T, C) bound on |capacity factor| differences a cell-hour between
+    the ERA5 cutout and the synthetic one it was encoded from: the
+    decoded 100 m speed lies within hypot(du, dv) of the encoded one (plus
+    its float32 rounding), the roughness within its half step (a negative
+    one sanitized to 2e-4); the hub speed w * log(h/z0) / log(100/z0)
+    then lies between the corners of that box (monotone in both), widened
+    by 1e-6 for float32 arithmetic, and the power curve's range over that
+    interval (its ends and every knot inside, the cut-out jump included)
+    bounds the change of the capacity factor.  (The synthetic roughness
+    is at least 2e-4, so the sanitizer's floor lies inside [z0 - dz, z0 +
+    dz] wherever that interval reaches 0.)"""
+    dev = syn.device
+    w, z = (torch.as_tensor(np.asarray(syn.data[k]), device=dev).double()
+            for k in ("wnd100m", "roughness"))
+    T = w.shape[0]
+    du, dv, dz = (torch.as_tensor(bounds[s], device=dev).view(T, 1, 1)
+                  for s in ("u100", "v100", "fsr"))
+    ulp = 2.0 ** -23
+    dw = torch.hypot(du, dv) + ulp * w
+    dzz = dz + ulp * z
+    h = float(turbine["hub_height"])
+
+    def factor(zz):
+        return torch.log(h / zz) / torch.log(100.0 / zz)
+
+    fa, fb = factor((z - dzz).clamp(min=1e-12)), factor(z + dzz)
+    f_min, f_max = torch.minimum(fa, fb), torch.maximum(fa, fb)
+    v_lo = (w - dw).clamp(min=0.0) * f_min * (1 - 1e-6)
+    v_hi = (w + dw) * f_max * (1 + 1e-6)
+    V = torch.as_tensor(np.asarray(turbine["V"], dtype=np.float64), device=dev)
+    P = torch.as_tensor(np.asarray(turbine["POW"], dtype=np.float64) / turbine["P"],
+                        device=dev)
+    p_lo = wind_physics.power_curve(v_lo, V, P, 1.0)
+    p_hi = wind_physics.power_curve(v_hi, V, P, 1.0)
+    top, bottom = torch.maximum(p_lo, p_hi), torch.minimum(p_lo, p_hi)
+    for vk, pk in zip(V.tolist(), P.tolist()):
+        inside = (v_lo <= vk) & (vk <= v_hi)
+        top = torch.where(inside, torch.clamp(top, min=pk), top)
+        bottom = torch.where(inside, torch.clamp(bottom, max=pk), bottom)
+    return (top - bottom).reshape(T, -1).cpu().numpy()
+
+
+def pv_first_order_bound(syn, deltas, night_lift):
+    """(T, C) first-order bound on PV capacity-factor differences a
+    cell-hour: for each input the larger response to shifting it alone by
+    +-its quantization bound (on the card, the solar angles unchanged),
+    summed over the inputs and doubled for their cross terms.  Albedo's
+    response is taken with the night's irradiance lifted by its own bound
+    (``night_lift``): the synthetic night is dark, the decoded one may
+    hold a half step of light for albedo to reflect."""
+    cache = syn.fields()
+    kw = dict(panel="CSi", orientation="latitude_optimal", aggregate_time=None)
+
+    def run():
+        return np.asarray(syn.pv(**kw).values, dtype=np.float64)
+
+    base = run()
+    total = np.zeros_like(base)
+    for name in PV_INPUTS:
+        lifted = {k: cache[k] for k in night_lift} if name == "albedo" else {}
+        for k in lifted:
+            cache[k] = lifted[k] + night_lift[k]
+        ref = run() if lifted else base
+        orig = cache[name]
+        resp = np.zeros_like(base)
+        for sign in (1.0, -1.0):
+            cache[name] = orig + sign * deltas[name]
+            resp = np.maximum(resp, np.abs(run() - ref))
+        cache[name] = orig
+        cache.update(lifted)
+        total += resp
+    T = base.shape[0]
+    return 2.0 * total.reshape(T, -1)
+
+
+def pv_deltas(syn, bounds):
+    """({PV input: (T, Y, X) float32 tensor on the card} of each input's
+    quantization bound, the night lift): the NetCDF accumulations' half
+    steps over 3600 s, temperature's GRIB2 half step of its hour, albedo's
+    through (ssrd - ssr) / ssrd where ssrd exceeds twice its half step
+    (elsewhere, at night, 1), each with its float32 rounding; the lift is
+    direct and diffuse's bounds where it is night."""
+    f = syn.fields()
+    T = f["temperature"].shape[0]
+    ulp = 2.0 ** -23
+    d = {"influx_direct": bounds["fdir"] / 3600 + ulp * f["influx_direct"].abs(),
+         "influx_diffuse": (bounds["ssrd"] + bounds["fdir"]) / 3600
+         + ulp * f["influx_diffuse"].abs(),
+         "influx_toa": bounds["tisr"] / 3600 + ulp * f["influx_toa"].abs(),
+         "temperature": torch.as_tensor(bounds["t2m"], dtype=torch.float32,
+                                        device=syn.device).view(T, 1, 1)
+         + ulp * f["temperature"].abs()}
+    s = (f["influx_direct"] + f["influx_diffuse"]).double() * 3600
+    n = s * (1 - f["albedo"].double())
+    bs, bn = bounds["ssrd"], bounds["ssr"]
+    lit = s > 2 * bs
+    alb = (s * bn + n.abs() * bs) / (s * (s - bs))
+    d["albedo"] = torch.where(lit, alb + ulp, torch.ones_like(alb)).float()
+    night = (~lit).float()
+    return d, {k: d[k] * night for k in ("influx_direct", "influx_diffuse")}
+
+
+def aggregate_bound(matrix, cell_bound):
+    """(B, T) bound of the aggregated series from a (T, C) bound a cell:
+    sum_c |M[b, c]| * bound[t, c]."""
+    return np.asarray(abs(matrix).astype(np.float64) @ cell_bound.T)
+
+
+def sarah_phase(matrix_shape=(4, 4)):
+    """17 (f): a SARAH archive of SIS/SID NETCDF4 files (0.05 deg over a
+    10 x 10 deg box, one day of half-hourly steps, int16 with fill codes
+    at NaN gaps), prepared with the synthetic module's temperature and
+    albedo onto a 0.25 deg cutout (regridded), PV on the card against the
+    CPU.  Returns its entry."""
+    x0, x1, y0, y1 = SARAH_BOX
+    lon = np.round(np.arange(x0 + 0.025, x1, 0.05), 4)  # pixel centres
+    lat = np.round(np.arange(y0 + 0.025, y1, 0.05), 4)
+    times = np.datetime64(SARAH_DAY, "ns") + np.arange(48) * np.timedelta64(30, "m")
+    fields = synthetic.generate("influx", lon, lat, times, seed=17)
+    direct, diffuse = fields["influx_direct"][1], fields["influx_diffuse"][1]
+    rng = np.random.default_rng(17)
+    gaps = rng.random(direct.shape) < 0.02
+    gaps[14:16, 50:80, 50:80] = True  # a dawn-time hole over a block
+    d = INGEST_DIR / "sarah"
+    d.mkdir(parents=True, exist_ok=True)
+    minutes = (times - times[0]) / np.timedelta64(1, "m")
+    t0 = time.perf_counter()
+    nbytes = 0
+    for var, vals in (("SIS", direct + diffuse), ("SID", direct)):
+        codes = np.rint(vals / SARAH_SCALE)
+        codes[gaps] = -1
+        path = d / f"{var}in{SARAH_DAY.replace('-', '')}0000004UD1000101UD.nc"
+        ncio.write_netcdf(path, {"time": 48, "lat": len(lat), "lon": len(lon)}, {
+            "time": (("time",), minutes, {"units": f"minutes since {SARAH_DAY} 00:00:00"}),
+            "lat": (("lat",), lat, {}), "lon": (("lon",), lon, {}),
+            var: (("time", "lat", "lon"), codes.astype(np.int16),
+                  {"scale_factor": SARAH_SCALE, "_FillValue": np.int16(-1), "units": "W m-2"})},
+            format="NETCDF4", complevel=NC_ENCODING["complevel"], shuffle=True)
+        nbytes += path.stat().st_size
+    write_s = time.perf_counter() - t0
+    # 0.25 deg cells whose edges lie inside the box: (x1 - x0) / 0.25 - 2 a side
+    kw = dict(module=["sarah", "synthetic"], sarah_dir=str(d), x=slice(x0 + 0.25, x1 - 0.25),
+              y=slice(y0 + 0.25, y1 - 0.25), dx=0.25, dy=0.25, time=SARAH_DAY)
+    side = (round((x1 - x0) / 0.25) - 1, round((y1 - y0) / 0.25) - 1)
+    t0 = time.perf_counter()
+    sc = Cutout(**kw).prepare(features=["influx", "temperature"])
+    prep_s = time.perf_counter() - t0
+    if sc.shape != side[::-1] or not np.isfinite(sc.data["influx_direct"]).all():
+        raise RuntimeError(f"sarah cutout {sc.shape}, finite "
+                           f"{np.isfinite(sc.data['influx_direct']).all()}")
+    m = region_matrix(sc, *matrix_shape)
+    cpu = Cutout(data=sc.data, grid_desc=sc.grid_desc, attrs=sc.attrs, var_attrs=sc.var_attrs,
+                 device="cpu")
+    call = dict(panel="CSi", orientation="latitude_optimal", matrix=m, aggregate_time=None)
+    res, wall, idle = timed_call(lambda: sc.pv(**call))
+    log(f"  (f) SARAH: {nbytes / 1e6:.1f} MB of SIS/SID NETCDF4 written in "
+        f"{write_s:.2f} s (0.05 deg, {len(lat)} x {len(lon)} pixels, 48 half hours, "
+        f"{int(gaps.sum())} NaN gaps); prepare onto {sc.shape} at 0.25 deg (regridded, "
+        f"interpolated, hourly; temperature and albedo from the synthetic module) "
+        f"{prep_s:.2f} s; pv with a {m.shape[0]}-region matrix {wall:.3f} s on the card "
+        f"({trace_note(idle)})")
+    err = check_close("sarah pv card vs CPU", res.values, cpu.pv(**call).values,
+                      (("p999", REL_TOL), ("max", 2e-2)))
+    return {"name": "sarah pv", "files_MB": nbytes / 1e6, "write_s": write_s,
+            "prepare_s": prep_s, "wall_s": wall, "idle": idle and idle[1],
+            "max_abs_err_cpu": err}
+
+
+def ingest_phase(cut, matrix, card, in_memory):
+    """Phase 17: ERA5-format files from the cut's first INGEST_DAYS days
+    through ``Cutout(..., module="era5")`` and ``prepare`` into an .atc
+    store, checked against what was encoded; wind and PV from the store on
+    the card against the CPU and against phase 10's series; the prepared
+    cutout through a NetCDF file; a SARAH archive.  Returns the ingest
+    line's entries."""
+    hours = 24 * INGEST_DAYS
+    g = cut.grid_desc
+    Y, X = cut.shape
+    C, B = Y * X, matrix.shape[0]
+    times = g.time[:hours]
+    if INGEST_DIR.exists():
+        shutil.rmtree(INGEST_DIR)
+    INGEST_DIR.mkdir(parents=True)
+    entries = []
+    log(f"ingest phase on {card}: ERA5-format files for {hours} h ({INGEST_DAYS} days, cut "
+        f"from the 30 of one monthly CDS request to keep the phase near 150 s; "
+        f"{len(era5_module.retrieval_times(times, monthly_requests=True))} query of "
+        f"retrieval_times) on the continental grid {Y} x {X} (dx {g.dx:.4f}, dy {g.dy:.4f} "
+        f"deg), into {INGEST_DIR} ({fs_type(INGEST_DIR)})")
+    end = str(np.datetime64(times[-1], "D"))
+    store_path = INGEST_DIR / "era5.atc"
+    era = Cutout(store_path, module="era5",
+                 **continental_kw(slice(str(np.datetime64(times[0], "D")), end)))
+    if not (np.array_equal(era.grid_desc.x, g.x) and np.array_equal(era.grid_desc.y, g.y)
+            and np.array_equal(era.grid_desc.time, times)):
+        raise RuntimeError("the era5 cutout's grid is not the cut's")
+    bounds = {}
+    real_open = era5_module._open_raw
+    t_part = time.perf_counter()
+    try:
+        for feature, fmt in INGEST_FORMATS.items():
+            # (a) the file
+            raw = era5_raw(cut, feature, hours)
+            path = INGEST_DIR / f"{feature}.{'nc' if fmt == 'NETCDF4' else 'grib'}"
+            t0 = time.perf_counter()
+            if fmt == "NETCDF4":
+                fb = write_cds_netcdf(path, raw, g.y, g.x, times)
+                n_msg = None
+            else:
+                ftimes = times[:1] if feature == "height" else times
+                fb, n_msg = write_grib(path, raw, g.y, g.x, ftimes, 1 if fmt == "GRIB1" else 2)
+            write_s = time.perf_counter() - t0
+            bounds.update(fb)
+            size = path.stat().st_size
+            # (b) prepare, the decode timed inside it
+            calls = []
+
+            def timed_open(p):
+                t1 = time.perf_counter()
+                out = real_open(p)
+                calls.append((time.perf_counter() - t1, out))
+                return out
+
+            era5_module._open_raw = timed_open
+            torch.cuda.synchronize()
+            with profiled() as prof, PeakRSS() as rss:
+                t0 = time.perf_counter()
+                era.prepare(features=[feature], era5_files=str(path))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            era5_module._open_raw = real_open
+            idle = device_idle(prof, wall * 1e3)
+            (decode_s, (decoded, coords)), = calls
+            values = sum(a.size for a in raw.values())
+            # (c) checks
+            t0 = time.perf_counter()
+            worst = check_decoded(feature, raw, decoded, coords, fb)
+            check_derived(feature, era, decoded, coords)
+            check_s = time.perf_counter() - t0
+            log(f"  {feature}: {fmt} {size / 1e6:.1f} MB"
+                + (f" ({n_msg} messages of {INGEST_NBITS}-bit simple packing)" if n_msg else
+                   f" (int16 CF packing, zlib level {NC_ENCODING['complevel']} with shuffle, "
+                   "latitude descending)")
+                + f" written in {write_s:.2f} s; prepare {wall:.2f} s, of which decode "
+                f"{decode_s:.2f} s = {size / decode_s / 1e6:.1f} MB/s of file, "
+                f"{values / decode_s / 1e6:.1f} M values/s; "
+                + ("the trace holds no device record: the card idle all the call (idle share "
+                   "1, as expected of host work)" if idle is None else
+                   f"device busy {idle[0]:.1f} ms, idle share {idle[1]:.3f}")
+                + f"; peak host memory {rss.peak / 1e9:.2f} GB ({(rss.peak - rss.start) / 1e9:.2f}"
+                " GB above the process's on entry, sampled every 20 ms)"
+                + f"; checks {check_s:.2f} s: decoded within {worst:.3f} of a half step of what "
+                f"was encoded, NaN masks equal, y ascending; the store's "
+                f"{len(era5_module.features[feature])} variables equal the derivations of the "
+                "decoded arrays bit for bit")
+            entries.append({"name": f"prepare {feature}", "format": fmt, "file_MB": size / 1e6,
+                            "messages": n_msg, "write_s": write_s, "wall_s": wall,
+                            "decode_s": decode_s, "decode_MB_per_s": size / decode_s / 1e6,
+                            "decode_Mvalues_per_s": values / decode_s / 1e6,
+                            "idle": 1.0 if idle is None else idle[1],
+                            "peak_host_GB": rss.peak / 1e9,
+                            "peak_above_entry_GB": (rss.peak - rss.start) / 1e9,
+                            "check_s": check_s, "worst_half_steps": worst})
+            del raw, decoded, coords, calls
+            gc.collect()
+    finally:
+        era5_module._open_raw = real_open
+    era = Cutout(store_path)
+    if not era.prepared:
+        raise RuntimeError("the era5 store is not prepared")
+    log(f"  (a)-(c): {time.perf_counter() - t_part:.1f} s")
+
+    # (d) wind and PV from the store on the card
+    t_part = time.perf_counter()
+    era.fields()
+    torch.cuda.synchronize()
+    log(f"  (d) resident staging from the store's memory maps: {time.perf_counter() - t_part:.2f}"
+        " s (set-up)")
+    nb, W = banded_width(matrix)
+    band_flops = 2 * nb * 128 * W * INGEST_CHUNK
+    modes = {"resident": CONT_MODES["resident"],
+             "streamed int16": dict(CONT_MODES["streamed int16"], time_chunk=INGEST_CHUNK)}
+    windows = [(t, min(t + INGEST_CHUNK, hours)) for t in range(0, hours, INGEST_CHUNK)]
+    runs = continental_runs(era, matrix)
+    runs["pv"](time_chunk=INGEST_CHUNK)  # set-up: the pinned buffers
+    out, call_entry = {}, {}
+    for mode, kw in modes.items():
+        for name, fn in runs.items():
+            r = timed_mode(name, f"{mode} (era5)", fn, kw, (B, hours, C), windows, band_flops)
+            out[name, mode] = r["vals"]
+            call_entry[name, mode] = {"name": f"era5 {name}", "mode": mode, "wall_s": r["wall"],
+                                      "idle": r["idle"] and r["idle"][1]}
+            entries.append(call_entry[name, mode])
+    log("  (d) the first 48 h against the plain path on the CPU:")
+    sub = era.isel_time(0, 48)
+    cpu = Cutout(data=sub.data, grid_desc=sub.grid_desc, attrs=sub.attrs,
+                 var_attrs=sub.var_attrs, device="cpu")
+    cpu_runs = continental_runs(cpu, matrix)
+    for (name, mode), vals in out.items():
+        kw = dict(modes[mode], time_chunk=24) if "int16" in mode else {}
+        want = cpu_runs[name](**kw).values
+        bnds = ((("max", REL_TOL),) if name == "wind" else
+                (("p999", REL_TOL), ("max", 2e-2)))
+        call_entry[name, mode]["max_abs_err_cpu"] = check_close(f"{name} {mode}", vals[:, :48],
+                                                                want, bnds)
+    for name in runs:
+        res = out[name, "resident"]
+        scale = float(np.abs(res).max())
+        diff = np.abs(out[name, "streamed int16"] - res)
+        stats = {"max": diff.max(), "p999": np.quantile(diff, 0.999)}
+        log(f"  {name}: int16 vs resident max {stats['max']:.3e}, p999 {stats['p999']:.3e} "
+            f"(max |resident| {scale:.4g})")
+        for stat, rel in INT16_REL[name].items():
+            if not stats[stat] < rel * scale:
+                raise RuntimeError(f"{name}: int16 vs resident {stat} {stats[stat]} above "
+                                   f"{rel} * {scale}")
+
+    log("  (d) against phase 10's series of the synthetic cut, by a bound from the "
+        f"{INGEST_NBITS}-bit quantization:")
+    names = sorted(cut.data)
+    syn = sub_cutout(cut, names, t1=hours, device=era.device)
+    for k in ("solar_altitude", "solar_azimuth"):
+        if not np.array_equal(np.asarray(era.data[k]), np.asarray(syn.data[k])):
+            raise RuntimeError(f"{k}: the era5 derivation differs from the synthetic field")
+    turbine = get_windturbineconfig("Vestas_V112_3MW", add_cutout_windspeed=False)
+    t0 = time.perf_counter()
+    cell = {"wind": wind_interval_bound(syn, bounds, turbine),
+            "pv": pv_first_order_bound(syn, *pv_deltas(syn, bounds))}
+    del syn
+    torch.cuda.empty_cache()
+    log(f"    bounds computed in {time.perf_counter() - t0:.1f} s")
+    for name in runs:
+        want = in_memory[name, "resident"][:, :hours]
+        slack = REL_TOL * float(np.abs(want).max())
+        bound = aggregate_bound(matrix, cell[name]) + slack
+        diff = np.abs(out[name, "resident"] - want)
+        ratio = float((diff / bound).max())
+        log(f"    {name}: max |era5 - synthetic| {diff.max():.4e}, bound max "
+            f"{bound.max():.4e}, median {np.median(bound):.4e}; worst diff / bound "
+            f"{ratio:.4f}" + (" (interval bound: rigorous)" if name == "wind" else
+                             " (first-order bound, doubled)")
+            + f"; float32 slack {slack:.3e} (1e-5 * max)")
+        if not ratio <= 1.0:
+            raise RuntimeError(f"{name}: era5 vs synthetic {ratio} of the bound")
+        call_entry[name, "resident"]["vs_synthetic"] = {
+            "max_diff": float(diff.max()), "bound_max": float(bound.max()), "worst_ratio": ratio}
+
+    log(f"  (d): {time.perf_counter() - t_part:.1f} s")
+
+    # (e) the prepared cutout through a NetCDF file
+    nc_path = INGEST_DIR / "era5.nc"
+    nbytes = sum(np.asarray(a).nbytes for a in era.data.values())
+    t0 = time.perf_counter()
+    era.to_netcdf(nc_path, compression=NC_ENCODING)
+    write_s = time.perf_counter() - t0
+    size = nc_path.stat().st_size
+    t0 = time.perf_counter()
+    nc = Cutout(nc_path)
+    open_s = time.perf_counter() - t0
+    for k, a in era.data.items():
+        if not np.array_equal(np.asarray(nc.data[k]), np.asarray(a), equal_nan=True):
+            raise RuntimeError(f"{k}: the NetCDF cutout's field differs from the store's")
+    again = continental_runs(nc, matrix)["wind"](**CONT_MODES["resident"]).values
+    if not np.array_equal(again, out["wind", "resident"]):
+        raise RuntimeError("wind from the NetCDF cutout differs from (d)'s")
+    log(f"  (e) to_netcdf: {nbytes / 1e9:.3f} GB of fields in {write_s:.2f} s = "
+        f"{nbytes / write_s / 1e9:.3f} GB/s (zlib level {NC_ENCODING['complevel']}, shuffle; "
+        f"{size / 1e9:.3f} GB file); Cutout(.nc) read and decoded in {open_s:.2f} s = "
+        f"{nbytes / open_s / 1e9:.3f} GB/s; every field and the wind series equal (d)'s bit "
+        "for bit")
+    entries.append({"name": "to_netcdf", "GB": nbytes / 1e9, "file_GB": size / 1e9,
+                    "s": write_s, "GB_per_s": nbytes / write_s / 1e9, "reopen_s": open_s,
+                    "reopen_GB_per_s": nbytes / open_s / 1e9})
+    del nc, era, again
+    gc.collect()
+    entries.append(sarah_phase())
+    shutil.rmtree(INGEST_DIR, ignore_errors=True)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2191,9 +2813,13 @@ def main():
     t0 = time.perf_counter()
     multi = multidevice_phase(cut, args, nan_args, card)
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ingest = ingest_phase(cut, matrix, card, in_memory)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"converters": converters}), flush=True)
     print(json.dumps({"availability": availability}), flush=True)
     print(json.dumps({"multidevice": multi}), flush=True)
+    print(json.dumps({"ingest": ingest}), flush=True)
     sharded8 = next(r for r in multi["sharded_step"] if r["shards"] == N_SHARDS)
 
     kernels = [{

@@ -1,12 +1,13 @@
 """The port's public surface against the JAX package's: every public
 function of ``atlite_tpu.convert``, of the GIS modules (``gis.exclusion``,
 ``gis.raster``, ``gis.regrid``, ``gis.kernels``, ``gis.geotiff``, their
-classes' methods included), of ``core.mesh`` and ``core.comm``, and
+classes' methods included), of ``core.mesh`` and ``core.comm``, of every
+``io`` module, every dataset module, ``data`` and ``utils``, and
 ``__graft_entry__.dryrun_multichip`` has its counterpart with the same
 signature (port-only parameters listed); the top-level ``__all__`` and the
 ``gis`` namespace cover the JAX ones; and the public members of
 ``Cutout`` and ``DataArray`` are the JAX ones less an explicit list of
-names deferred to later slices, which each slice shortens.
+names deferred to later slices (now none).
 
 Also the five keyword arguments of ``convert_and_aggregate`` that the
 port once dropped (``shapes_crs``, ``capacity_factor``,
@@ -39,11 +40,10 @@ torch.set_num_threads(1)
 
 # parameters only the port has: where its functions run
 PORT_ONLY = {"convert_line_rating": {"device"}, "compute_availabilitymatrix": {"mesh"},
-             "global_mesh": {"devices"}, "dryrun_multichip": {"devices"}}
+             "global_mesh": {"devices"}, "dryrun_multichip": {"devices"},
+             "migrate_from_cutout_directory": {"device"}}
 # members of the JAX classes that later slices port (ROADMAP queue 1)
-DEFERRED_CUTOUT = {
-    "to_netcdf",                                           # item 5
-}
+DEFERRED_CUTOUT = set()
 DEFERRED_DATAARRAY = set()
 PORT_ONLY_MEMBERS = {"Cutout": {"torch_dtype"}, "DataArray": set()}
 
@@ -132,6 +132,42 @@ def test_core_signature(mod, name):
     want = public_functions(importlib.import_module(f"atlite_tpu.core.{mod}"))[name]
     got = public_functions(importlib.import_module(f"atlite_tpu_torch.core.{mod}"))[name]
     same_signature(got, want, name)
+
+
+IO_MODULES = ["io.netcdf3", "io.netcdf", "io.hdf5", "io.hdf5_write", "io.grib", "io.png",
+              "io.jp2", "io.aec", "io.zstd", "io.szip", "io.cds", "datasets.era5",
+              "datasets.sarah", "datasets.gebco", "datasets.ncep", "datasets.cordex", "data",
+              "utils"]
+IO_CALLABLES = [(mod, name) for mod in IO_MODULES for name in sorted(public_callables(
+    importlib.import_module(f"atlite_tpu.{mod}")))]
+
+
+@pytest.mark.parametrize("mod", IO_MODULES)
+def test_io_module_has_every_public_callable(mod):
+    want = importlib.import_module(f"atlite_tpu.{mod}")
+    got = importlib.import_module(f"atlite_tpu_torch.{mod}")
+    assert set(public_callables(want)) <= set(public_callables(got))
+    # the module-level constants of the dataset contract and the tables
+    for name in ("crs", "features", "static_features", "dx", "dy", "dt", "GRIB1_PARAMS",
+                 "GRIB2_PARAMS", "CDS_NAMES", "FEATURE_SHORTNAMES", "PRODUCT", "G0"):
+        if hasattr(want, name):
+            assert getattr(got, name) == getattr(want, name), name
+
+
+@pytest.mark.parametrize("mod, name", IO_CALLABLES, ids=[f"{m}.{n}" for m, n in IO_CALLABLES])
+def test_io_signature(mod, name):
+    want = public_callables(importlib.import_module(f"atlite_tpu.{mod}"))[name]
+    got = public_callables(importlib.import_module(f"atlite_tpu_torch.{mod}"))[name]
+    same_signature(got, want, name)
+
+
+def test_dataset_registry():
+    from atlite_tpu.datasets import modules as jmodules
+    from atlite_tpu_torch.datasets import modules
+
+    assert list(modules) == list(jmodules)
+    for name, mod in jmodules.items():
+        assert modules[name].__name__ == mod.__name__.replace("atlite_tpu.", "atlite_tpu_torch.")
 
 
 def test_dryrun_multichip_signature():

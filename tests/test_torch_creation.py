@@ -180,8 +180,11 @@ def test_store_roundtrip(tmp_path, both):
     assert jc2.equals(j)
     with pytest.warns(UserWarning, match="ignored"):
         Cutout(path, device="cpu", module="synthetic")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(TypeError, match="must be specified"):  # no .nc file there
         Cutout(tmp_path / "c1.nc", device="cpu")
+    c2.to_file(tmp_path / "c1.nc")  # a .nc path writes NetCDF, which either package reads
+    assert Cutout(tmp_path / "c1.nc", device="cpu").equals(t)
+    assert atlite_tpu.Cutout(path=tmp_path / "c1.nc").equals(j)
 
 
 def test_merge():

@@ -89,9 +89,10 @@ def test_dataset_module_contract_equals_jax():
     from atlite_tpu.datasets import modules as jmodules
     from atlite_tpu_torch.datasets import modules
 
-    assert sorted(modules) == ["synthetic"]
-    t, j = modules["synthetic"], jmodules["synthetic"]
-    assert (t.crs, t.features, t.static_features) == (j.crs, j.features, j.static_features)
+    assert sorted(modules) == sorted(jmodules) == ["era5", "gebco", "sarah", "synthetic"]
+    for name, j in jmodules.items():
+        t = modules[name]
+        assert (t.crs, t.features, t.static_features) == (j.crs, j.features, j.static_features)
 
 
 def test_prepare_keeps_prepared_and_overwrites():
@@ -182,11 +183,11 @@ def test_cutout_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         Cutout(**KW)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Cutout("europe.nc", device="cpu")
+    with pytest.raises(TypeError, match="must be specified"):
+        Cutout("europe.nc", device="cpu")  # no NetCDF file there, nor the arguments
     with pytest.raises(TypeError, match="must be specified"):
         Cutout("europe.atc", device="cpu")  # no store there, nor the arguments to make one
     with pytest.raises(ValueError, match="unknown dataset"):
-        Cutout(device="cpu", **{**KW, "module": "era5"})
+        Cutout(device="cpu", **{**KW, "module": "ncep"})  # outside the registry, as in JAX
     with pytest.raises(TypeError, match="grid_desc"):
         Cutout(device="cpu", data={})

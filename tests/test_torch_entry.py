@@ -1,6 +1,7 @@
 """The port's headline step against ``jax.jit(__graft_entry__._step_fn())``
 (x64 off, as the JAX package runs on its chip), and the port's
-independence from JAX, the JAX package, pandas and PyYAML.
+independence from JAX, the JAX package, pandas, PyYAML, rasterio, h5py,
+netCDF4 and xarray.
 
 Tolerance: rtol 1e-5 / atol 2e-5 on both bus series, NaN masks equal.
 The (24, 16, 32, 4) grid has a row at exactly 50 deg latitude, where the
@@ -25,7 +26,8 @@ from atlite_tpu_torch import entry, from_jax_inputs, step_fn
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-BANNED = ("jax", "jaxlib", "atlite_tpu", "pandas", "yaml", "rasterio")
+BANNED = ("jax", "jaxlib", "atlite_tpu", "pandas", "yaml", "rasterio", "h5py", "netCDF4",
+          "xarray")
 
 
 def jax_step(args):
@@ -207,6 +209,29 @@ c.shard(make_mesh([torch.device("cpu")] * 4))
 sh = c.wind("Vestas_V112_3MW", matrix=m, aggregate_time=None).values
 c.unshard()
 assert np.abs(sh - c.wind("Vestas_V112_3MW", matrix=m, aggregate_time=None).values).max() < 1e-3
+from atlite_tpu_torch import data, utils
+from atlite_tpu_torch.io import grib, netcdf
+ncdir = Path(tempfile.mkdtemp())
+c.to_netcdf(ncdir / "c.nc")
+nc = atlite_tpu_torch.Cutout(ncdir / "c.nc", device="cpu")
+assert np.array_equal(nc.data["wnd100m"], c.data["wnd100m"])
+nc.to_file(ncdir / "c3.nc")
+assert atlite_tpu_torch.Cutout(ncdir / "c3.nc", device="cpu").prepared
+recs = grib.read("tests/data/era5_sample.grib")
+assert grib.read(grib.encode_grib2(recs[:4]))[0]["shortName"] == recs[0]["shortName"]
+e = atlite_tpu_torch.Cutout(ncdir / "e.nc", device="cpu", module="era5", x=slice(-4, 1.5),
+                            y=slice(56, 62), time="2013-01-01",
+                            era5_files="tests/data/era5_sample.grib").prepare()
+assert e.prepared and e.wind("Vestas_V112_3MW", matrix=m, aggregate_time=None).values.shape == (
+    3, 24)
+s = atlite_tpu_torch.Cutout(device="cpu", module="sarah", sarah_dir="tests/data/sarah",
+                            x=slice(-4.9, -4.31), y=slice(56.1, 56.51), dx=0.1, dy=0.1,
+                            time=slice("2013-05-01", "2013-05-01 23:00")).prepare()
+assert np.isfinite(s.data["influx_direct"]).all()
+assert netcdf.decode_cf_time([0.5], "hours since 1900-1-1 00:00:00")[0] == np.datetime64(
+    "1900-01-01T00:30", "ns")
+assert len(utils.timeindex_from_slice(slice("2013-01", "2013-02"))) == 1416
+assert len(data.available_features("era5")) == 15
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not loaded, loaded
 print("PORT RUNS ALONE")
@@ -222,8 +247,11 @@ def test_port_runs_without_jax_and_pandas():
     line rating, the availability matrix (device path on the CPU and host
     path), ``regrid`` of a field held in a tensor, a store written by
     ``prepare``, reopened and streamed, ``dryrun_multichip`` and a sharded
-    Cutout on CPU devices, run with jax, atlite_tpu, pandas, yaml and
-    rasterio refused;
+    Cutout on CPU devices, a NetCDF cutout written and reopened, GRIB
+    decoded and encoded, an ERA5 cutout prepared from GRIB into a ``.nc``
+    file, a SARAH cutout from its archive, CF time, ``utils`` and
+    ``data``, run with jax, atlite_tpu, pandas, yaml, rasterio, h5py,
+    netCDF4 and xarray refused;
     ``to_pandas`` asks for pandas only when it is called."""
     out = subprocess.run(
         [sys.executable, "-c", BLOCKER.format(banned=BANNED)],
@@ -262,6 +290,6 @@ def test_no_banned_imports(path):
 
 def test_chip_smoke_imports_only_the_port():
     allowed = {"__future__", "ctypes", "dataclasses", "gc", "json", "logging", "mmap", "os",
-               "pathlib", "re", "shutil", "subprocess", "sys", "tempfile", "time", "numpy",
-               "scipy", "torch", "atlite_tpu_torch"}
+               "pathlib", "re", "shutil", "subprocess", "sys", "tempfile", "threading", "time",
+               "numpy", "scipy", "torch", "atlite_tpu_torch"}
     assert set(imported_roots(ROOT / "chip_smoke.py")) <= allowed
