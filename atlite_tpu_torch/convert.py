@@ -311,6 +311,20 @@ def _chunk_bounds(cutout, convert_func, time_chunk, convert_kwds):
     return bounds
 
 
+def _stream_windows(cutout, convert_func, time_chunk, convert_kwds):
+    """The streamer's chunks, [(t0, t1, drop), ...]: ``_chunk_bounds``, and
+    for converters marked ``_time_elementwise`` a short last window slid
+    back to a whole chunk whose first ``drop`` hours are dropped."""
+    bounds = _chunk_bounds(cutout, convert_func, time_chunk, convert_kwds)
+    T = bounds[-1]
+    windows = [(bounds[i], bounds[i + 1], 0) for i in range(len(bounds) - 1)]
+    if getattr(convert_func, "_time_elementwise", False) and len(windows) > 1:
+        t0_l, t1_l, _ = windows[-1]
+        if t1_l - t0_l < time_chunk and T >= time_chunk:
+            windows[-1] = (T - time_chunk, T, time_chunk - (t1_l - t0_l))
+    return windows
+
+
 class _Stager:
     """Stages time chunks of a cutout on its device.
 
@@ -322,8 +336,11 @@ class _Stager:
     refilled only after the event of its last copy has completed, and the
     compute stream waits on ``ready`` and records its use of every tensor
     the side stream allocated (``use``).  On the CPU each chunk gets fresh
-    host memory.
+    host memory.  ``copies`` counts the chunks copied to the card through
+    the side stream, as the kernels count their ``launches``.
     """
+
+    copies = 0
 
     def __init__(self, cutout, only, pack16):
         self.cutout, self.only, self.pack16 = cutout, only, pack16
@@ -367,6 +384,7 @@ class _Stager:
         with torch.cuda.stream(stream):
             with record_function(f"copy {t0}:{t1}"):
                 dev = batch["host"].to(self.cutout.device, non_blocking=True)
+            _Stager.copies += 1
             pinned["copied"][i] = torch.cuda.Event()
             pinned["copied"][i].record(stream)
             sub._fields_cache = (dtype, sub._unpack(batch, dev, dtype))
@@ -416,13 +434,7 @@ def _chunked_convert(cutout, convert_func, time_chunk, aggregate=None, stream_pa
         matrix, index, bus_name = aggregate
         agg_fn = spmm_closure(matrix)
 
-    bounds = _chunk_bounds(cutout, convert_func, time_chunk, convert_kwds)
-    windows = [[bounds[i], bounds[i + 1], 0] for i in range(len(bounds) - 1)]
-    if getattr(convert_func, "_time_elementwise", False) and len(windows) > 1:
-        t0_l, t1_l, _ = windows[-1]
-        if t1_l - t0_l < time_chunk and T >= time_chunk:
-            windows[-1] = [T - time_chunk, T, time_chunk - (t1_l - t0_l)]
-
+    windows = _stream_windows(cutout, convert_func, time_chunk, convert_kwds)
     cutout._stage_static()  # once, on this thread's stream
     stager = _Stager(cutout, needed, pack16)
     pieces, times = [], []
@@ -848,8 +860,8 @@ def runoff(cutout, smooth=None, lower_threshold_quantile=None, normalize_using_y
 
     if normalize_using_yearly is not None:
         stat_years, totals, labels = _yearly_totals(normalize_using_yearly)
-        years = _year_of(res.coords["time"])
-        uniq, counts = np.unique(years, return_counts=True)
+        uniq, ids = timeutil.yearly_groups(res.coords["time"])
+        years, counts = uniq[ids], np.bincount(ids)
         full = np.intersect1d(uniq[counts > 8700], stat_years)
         if not len(full):
             raise ValueError("Need at least a full year of data (more is better)")

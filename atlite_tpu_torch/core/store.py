@@ -22,6 +22,7 @@ form or numpy's ("2013-01-01T00:00:00.000000000") reads back.
 from __future__ import annotations
 
 import datetime
+import glob
 import hashlib
 import json
 import os
@@ -92,7 +93,7 @@ def write_store(path, grid, data, attrs, var_attrs):
     parent.mkdir(parents=True, exist_ok=True)
     # sweep tmp dirs orphaned by a hard crash of an earlier write (a
     # continental store's tmp dir is tens of GB); one writer at a time
-    for stale in parent.glob(path.name + ".tmp*"):
+    for stale in parent.glob(glob.escape(path.name) + ".tmp*"):
         if stale.is_dir():
             shutil.rmtree(stale, ignore_errors=True)
     tmp = Path(tempfile.mkdtemp(prefix=path.name + ".tmp", dir=parent))

@@ -89,6 +89,11 @@ def to_julian_date(t: np.ndarray) -> np.ndarray:
     )
 
 
+def julian_day_offset(times) -> np.ndarray:
+    """Days since the J2000 epoch (2451545.0 JD), float64."""
+    return to_julian_date(times) - 2451545.0
+
+
 def solar_ephemeris(time, time_shift="0h") -> dict[str, np.ndarray]:
     """Per-timestep solar ephemeris tables (float64, shape (T,)):
     ``declination`` and ``hour_angle0`` (hour angle at lon=0, wrapped to
@@ -128,3 +133,12 @@ def daily_groups(time, hour_shift=0.0):
     rank[order] = np.arange(len(order))
     uniq = days[np.sort(first)].astype("datetime64[ns]")
     return uniq, rank[inverse.reshape(-1)].astype(np.int32)
+
+
+def yearly_groups(time):
+    """Group stamps by calendar year: ``(years, group_ids)``, the years
+    present in ascending order (int32) and a (T,) int32 map of each stamp
+    to its year."""
+    years = calendar_fields(time)["year"].astype(np.int32)
+    uniq = np.unique(years)
+    return uniq, np.searchsorted(uniq, years).astype(np.int32)

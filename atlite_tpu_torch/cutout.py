@@ -60,6 +60,21 @@ def _time_dims(var_attrs, name):
     return bool(dims) and dims[0] == "time"
 
 
+def _out_of_pack_range(name, codes, params):
+    """The error of a variable whose codes (lo, hi), before rounding,
+    leave 0..65534 by more than half a step: both ranges in its units."""
+    off, scale, lg = params
+
+    def value(code):
+        v = code * scale + off
+        return float(np.exp(v) if lg else v)
+
+    return (f"variable {name!r}: a chunk spans {value(codes[0]):.6g}..{value(codes[1]):.6g}, "
+            f"outside its int16 pack range {value(0):.6g}..{value(65534):.6g} (stale "
+            "pack_min/pack_max?); int16 packed streaming would clip it. Stream it raw, or "
+            "recompute the range (drop the attributes and the Cutout's pack cache)")
+
+
 class Cutout:
     """Weather-data cutout on one device.
 
@@ -420,6 +435,9 @@ class Cutout:
         ``dtype``, or, when every one has pack parameters, as uint16 codes
         ``rint((value - offset) / scale)`` clipped to 0..65534 (NAN_CODE for
         NaN; log of the value in log space), held in an int16 tensor.
+        Raises ValueError when a variable's values reach more than half a
+        code step beyond its pack range (stale ``pack_min``/``pack_max``):
+        clipping them would change the data silently.
         Returns {"host", "names", "params"}; params is None when raw.
         """
         alloc = alloc or (lambda shape, tdt: torch.empty(shape, dtype=tdt))
@@ -441,6 +459,9 @@ class Cutout:
                         np.log(a, out=a)
                     np.subtract(a, off, out=a)
                     np.divide(a, scale, out=a)
+                    lo, hi = np.fmin.reduce(a, axis=None), np.fmax.reduce(a, axis=None)
+                    if lo < -0.5 or hi > 65534.5:
+                        raise ValueError(_out_of_pack_range(n, (lo, hi), pack16[n]))
                     np.rint(a, out=a)
                     np.clip(a, 0.0, 65534.0, out=a)
                 a[np.isnan(a)] = NAN_CODE
@@ -777,7 +798,9 @@ class Cutout:
         g = self.grid_desc
         start = np.datetime_as_string(g.time[0], unit="D") if len(g.time) else "?"
         end = np.datetime_as_string(g.time[-1], unit="D") if len(g.time) else "?"
-        features = sorted({f for _, f in self.prepared_features.index})
+        # plain str, as pandas prints the JAX package's index (not np.str_)
+        features = sorted({str(f) if isinstance(f, str) else f
+                           for _, f in self.prepared_features.index})
         return (f'<Cutout "{self.name}">\n'
                 f" x = {g.x[0]:.2f} ⟷ {g.x[-1]:.2f}, dx = {g.dx:.2f}\n"
                 f" y = {g.y[0]:.2f} ⟷ {g.y[-1]:.2f}, dy = {g.dy:.2f}\n"

@@ -302,6 +302,43 @@ def _excl_from_parts(parts):
     return get_excl
 
 
+class _ColdMask:
+    """A cold call's fine mask, block by block: each block built by
+    ``build(b0, b1)`` (packed bits) on one worker thread, the next one
+    queued while the device works on this one, uploaded and unpacked on
+    ``device``.  Blocks may be asked for in any order; each part is kept
+    under its own bounds, and ``finish`` caches them on the excluder once
+    every block was made (one copy of the mask on the device)."""
+
+    def __init__(self, blocks, build, nx, device, excluder, cache_key):
+        self.blocks, self.build, self.nx = blocks, build, nx
+        self.excluder, self.cache_key = excluder, cache_key
+        self.worker = ThreadPoolExecutor(max_workers=1)
+        self.upload = _Uploader(device)
+        self.futs = {}
+        self.parts = {}
+        if blocks:
+            self.futs[blocks[0]] = self.worker.submit(build, *blocks[0])
+
+    def get(self, b0, b1):
+        i = self.blocks.index((b0, b1))
+        if (b0, b1) not in self.futs:
+            self.futs[(b0, b1)] = self.worker.submit(self.build, b0, b1)
+        packed = self.futs[(b0, b1)].result()
+        if i + 1 < len(self.blocks) and self.blocks[i + 1] not in self.futs:
+            self.futs[self.blocks[i + 1]] = self.worker.submit(self.build, *self.blocks[i + 1])
+        blk = _unpack_mask_device(self.upload(packed), (b1 - b0) * self.nx)
+        self.parts[(b0, b1)] = blk = blk.reshape(b1 - b0, self.nx)
+        return blk
+
+    def finish(self):
+        """Idempotent; called in a finally, so an exception mid-loop never
+        leaks the worker thread or its queued builds."""
+        self.worker.shutdown(wait=True, cancel_futures=True)
+        if len(self.parts) == len(self.blocks):
+            self.excluder._fine_mask_cache = (self.cache_key, dict(self.parts))
+
+
 class _BlockExcluder:
     """Read-only per-block view of an ExclusionContainer for the pipelined
     cold mask build: rasters carry allow_no_overlap=True (the overlap
@@ -492,32 +529,8 @@ def _availability_on(cutout, device, edges, emask, excluder, row_tile, max_devic
                 m = build_exclusion_mask(blk_exc, sub_t, (m1 - m0, nx))
                 return np.packbits(m[b0 - m0:b0 - m0 + (b1 - b0)])
 
-        worker = ThreadPoolExecutor(max_workers=1)
-        upload = _Uploader(device)
-        futs = {}
-        if blocks:
-            futs[blocks[0]] = worker.submit(_build, *blocks[0])
-        parts = []
-
-        def get_excl(b0, b1):
-            i = blocks.index((b0, b1))
-            if (b0, b1) not in futs:  # out-of-order safety
-                futs[(b0, b1)] = worker.submit(_build, b0, b1)
-            packed = futs[(b0, b1)].result()
-            if i + 1 < len(blocks) and blocks[i + 1] not in futs:
-                futs[blocks[i + 1]] = worker.submit(_build, *blocks[i + 1])
-            blk = _unpack_mask_device(upload(packed), (b1 - b0) * nx).reshape(b1 - b0, nx)
-            parts.append(blk)
-            return blk
-
-        def finish_excl():
-            # idempotent; called in a finally so an exception mid-loop
-            # never leaks the worker thread or queued build futures
-            worker.shutdown(wait=True, cancel_futures=True)
-            if len(parts) == len(blocks):
-                # cache the parts themselves — ONE copy of the mask on
-                # the device
-                excluder._fine_mask_cache = (cache_key, dict(zip(blocks, parts)))
+        cold = _ColdMask(blocks, _build, nx, device, excluder, cache_key)
+        get_excl, finish_excl = cold.get, cold.finish
 
     tr = g.transform_r
     NY, NX = g.shape

@@ -7,12 +7,14 @@ CC-BY-4.0; each file keeps its attribution header) by ``load_yaml``, a
 reader of the flat subset they use, so the port needs no PyYAML.  The
 registries ``windturbines``, ``solarpanels`` and ``cspinstallations`` map
 each ``*.yaml`` stem to its file; a file outside them (such as the
-extensionless ``eno_126_*`` turbines) is read by its ``Path``.  The OEDB
-turbine search (``oedb:`` names) downloads, and is not ported.
+extensionless ``eno_126_*`` turbines) is read by its ``Path``.  An
+``oedb:`` name searches the OEDB turbine library (one download a process,
+kept as a list of rows) and registers the turbine it finds.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import re
 from pathlib import Path
@@ -158,18 +160,133 @@ def get_windturbineconfig(turbine, add_cutout_windspeed=True):
     if not isinstance(turbine, (str, Path, dict)):
         raise KeyError(f"`turbine` must be a str, pathlib.Path or dict, but is {type(turbine)}.")
     if isinstance(turbine, str) and turbine.startswith("oedb:"):
-        raise NotImplementedError(
-            f"turbine {turbine!r}: the OEDB turbine search downloads its data and is not "
-            "ported; pass a registry name, a Path to a turbine file or a dict")
-    if isinstance(turbine, (str, Path)):
-        raw = load_yaml(_resolve(turbine, windturbines, "turbine"))
-        conf = dict(V=np.array(raw["V"], dtype=float),
-                    POW=np.array(raw["POW"], dtype=float),
-                    hub_height=raw["HUB_HEIGHT"],
-                    P=float(np.max(raw["POW"])))
+        conf = get_oedb_windturbineconfig(turbine[len("oedb:"):])
+    elif isinstance(turbine, (str, Path)):
+        path = _resolve(turbine, windturbines, "turbine")
+        if isinstance(path, dict):  # a turbine the OEDB search registered
+            conf = dict(path)
+        else:
+            raw = load_yaml(path)
+            conf = dict(V=np.array(raw["V"], dtype=float),
+                        POW=np.array(raw["POW"], dtype=float),
+                        hub_height=raw["HUB_HEIGHT"],
+                        P=float(np.max(raw["POW"])))
     else:
         conf = turbine
     return _validate_turbine_config_dict(conf, add_cutout_windspeed)
+
+
+OEDB_URL = ("https://openenergy-platform.org/api/v0/schema/supply/tables/"
+            "wind_turbine_library/rows")
+_oedb_turbines = None  # the library's rows with a power curve, once a process
+
+
+def _contains(value, pattern):
+    """``pattern`` found in ``value`` as a case-insensitive regex (pandas'
+    ``str.contains(pattern, case=False)``); a missing value matches nothing."""
+    return isinstance(value, str) and re.search(pattern, value, flags=re.IGNORECASE) is not None
+
+
+def _rows_text(rows, index, columns, max_rows=60, shown=5):
+    """``rows`` (dicts) as pandas prints a DataFrame of ``columns`` with
+    ``index``: labels left-justified, columns right-justified one space
+    apart, numbers in a sign slot, the first and last ``shown`` rows only
+    past ``max_rows``."""
+    def cell(v):
+        if v is None or (isinstance(v, float) and np.isnan(v)):
+            return " NaN"
+        return f"{v: d}" if isinstance(v, (int, np.integer)) else f" {v}"
+
+    n = len(rows)
+    cut = n > max_rows
+    keep = list(range(n)) if not cut else list(range(shown)) + list(range(n - shown, n))
+
+    def dots(width, just):
+        # pandas' row of dots where the middle rows are left out
+        return [just("..." if width > 3 else "..", width)] if cut else []
+
+    labels = [str(index[i]) for i in keep]
+    iw = max(map(len, labels))
+    cols = [[" " * iw] + [lab.ljust(iw) for lab in labels]]
+    cols[0][1 + shown:1 + shown] = dots(iw, str.ljust)
+    for c in columns:
+        numeric = all(isinstance(r[c], (int, np.integer)) for r in rows)
+        head = (" " if numeric else "") + c
+        cells = [cell(rows[i][c]) for i in keep]
+        width = max(len(head), *map(len, cells))
+        col = [head.rjust(width)] + [v.rjust(width) for v in cells]
+        col[1 + shown:1 + shown] = dots(width, str.rjust)
+        cols.append(col)
+    lines = [" ".join(col[k] for col in cols) for k in range(len(cols[0]))]
+    text = "\n".join(lines)
+    return text + (f"\n\n[{n} rows x {len(columns)} columns]" if cut else "")
+
+
+def get_oedb_windturbineconfig(search=None, **search_params):
+    """A turbine config from the OEDB turbine library: the one row with a
+    power curve whose ``name`` or ``turbine_type`` contains ``search`` (a
+    case-insensitive regex; an int searches by ``id``), also filtered by
+    ``id=``, ``name=``, ``turbine_type=`` and ``manufacturer=``.  The
+    curve is converted from kW to MW; a hub height of several values
+    ("98;103") is their integer mean, a missing one 100 m (warned).  The
+    config is registered in ``windturbines`` as
+    ``<manufacturer>_<turbine_type>`` with "/", "-" and " " as "_".
+    Raises RuntimeError when no turbine or several match.  Downloads the
+    library on the first call of a process (``requests``)."""
+    try:
+        import requests
+    except ImportError as exc:
+        raise ImportError("OEDB turbine download requires 'requests'") from exc
+
+    if isinstance(search, int):
+        search_params.setdefault("id", search)
+        search = None
+
+    global _oedb_turbines
+    if _oedb_turbines is None:
+        result = requests.get(OEDB_URL, timeout=60.0)
+        _oedb_turbines = [(i, row) for i, row in enumerate(result.json())
+                          if row["has_power_curve"]]
+
+    found = _oedb_turbines
+    if search is not None:
+        found = [(i, r) for i, r in found
+                 if _contains(r["name"], search) or _contains(r["turbine_type"], search)]
+    if "id" in search_params:
+        found = [(i, r) for i, r in found if r["id"] == int(search_params["id"])]
+    for key in ("name", "turbine_type", "manufacturer"):
+        if key in search_params:
+            found = [(i, r) for i, r in found if _contains(r[key], search_params[key])]
+    if len(found) < 1:
+        raise RuntimeError("No turbine found.")
+    if len(found) > 1:
+        raise RuntimeError(
+            f"Provided information corresponds to {len(found)} turbines, use "
+            "`id` for an unambiguous search.\n"
+            + _rows_text([r for _, r in found], [i for i, _ in found],
+                         ["id", "manufacturer", "turbine_type"]))
+    ds = found[0][1]
+    power = np.array(json.loads(ds["power_curve_values"])) / 1e3  # kW -> MW
+    hub_height = ds["hub_height"]
+    if not hub_height:
+        hub_height = 100
+        logger.warning("No hub_height defined in dataset; assuming 100 m.")
+    elif isinstance(hub_height, str):
+        hh = [float(t) for t in re.split(r"\s*;\s*", hub_height.strip()) if t]
+        # several heights: their mean in integer arithmetic
+        hub_height = float(np.mean(hh, dtype=int)) if len(hh) > 1 else hh[0]
+    conf = {
+        "name": ds["turbine_type"].strip(),
+        "manufacturer": ds["manufacturer"].strip(),
+        "source": f"Original: {ds['source']}. Via OEDB {OEDB_URL}",
+        "hub_height": hub_height,
+        "V": np.array(json.loads(ds["power_curve_wind_speeds"])),
+        "POW": power,
+        "P": power.max(),
+    }
+    charmap = str.maketrans("/- ", "___")
+    windturbines["{manufacturer}_{name}".format(**conf).translate(charmap)] = conf
+    return conf
 
 
 def windturbine_rated_capacity_per_unit(turbine):

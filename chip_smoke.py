@@ -164,10 +164,33 @@ Phases, in order; any failure exits non-zero:
      (d)'s bit for bit; (f) a SARAH archive of SIS/SID NETCDF4 files
      (0.05 deg, 10 x 10 deg, a day of half hours, NaN gaps) prepared onto
      0.25 deg with the synthetic module's temperature and albedo, PV on
-     the card against the CPU.  The files are removed after.
+     the card against the CPU.  The files are removed after.  The
+     streamed calls stage the whole span as one chunk;
+ 18. a full year on the card: (a) tests/test_fullyear.py's gates on a
+     float64 synthetic 2013 (24 x 32 cells): the annual wind and PV
+     capacity factors, the 365 heat-demand days and their sum, runoff
+     normalized to a yearly total (through ``yearly_groups``) as pinned
+     literals within rtol 1e-6, and twelve monthly means in (0, 1); (b) a
+     float32 year at the bench grid (96 x 128 cells of 0.25 deg, 8760 h)
+     with a (20, C) region matrix: an ``oedb:`` turbine found through a
+     stub ``requests`` (nothing sent out) in a library whose row holds the
+     registry's Vestas V112 3MW in kW, its series equal the registry
+     turbine's bit for bit, resident and streamed int16 a month at a time;
+     PV, heat demand and normalized runoff resident and streamed int16
+     (wall s, cell-hours/s and idle share a call, pack / copy / convert /
+     aggregate ms a chunk, the streamer's copy count as the staging
+     gate), int16 within phase 10's bounds, the first 48 h against the
+     CPU; the fused step at T = 8760 with the OEDB curve against its
+     plain version within 1e-5 * max, its ms beside its byte bound; the
+     peak host memory of the preparation; (c) every examples_torch/*.py
+     in a subprocess on the card (rc 0 and output; one that stops only
+     for want of matplotlib is reported as not run).
+The step of phase 4 is also held against the JAX package's step on the
+same inputs, stored by tools/make_jax_step_reference.py (within 1e-4 *
+max; the diff is printed on the kernels line).
 Then one JSON line of the converters, one of availability, one of the
-multi-device phase, one of ingest, one of kernels and, last, the result
-line.
+multi-device phase, one of ingest, one of the year, one of kernels and,
+last, the result line.
 """
 
 from __future__ import annotations
@@ -204,7 +227,7 @@ from atlite_tpu_torch import (
     native,
     regrid,
 )
-from atlite_tpu_torch import profiling
+from atlite_tpu_torch import profiling, resource
 from atlite_tpu_torch import convert as conv
 from atlite_tpu_torch.convert import convert_wind
 from atlite_tpu_torch.core import store
@@ -316,6 +339,32 @@ def compare(name, got, want):
     return err
 
 
+JAX_STEP_REFERENCE = (Path(__file__).resolve().parent / "tests" / "data_torch"
+                      / "jax_step_bench.npz")
+JAX_TOL = 1e-4  # the card's step against the stored JAX step, relative to max
+
+
+def against_jax_step(wind_bus, pv_bus):
+    """Max abs diff of the card's step at the bench shape against the JAX
+    package's step on the same inputs (``__graft_entry__._step_fn`` on a
+    CPU, float32, stored by tools/make_jax_step_reference.py); raises above
+    JAX_TOL * max.  Returns {"wind_bus": diff, "pv_bus": diff}."""
+    ref = np.load(JAX_STEP_REFERENCE)
+    if tuple(ref["shape"]) != BENCH_SHAPE:
+        raise RuntimeError(f"the stored JAX step is of shape {tuple(ref['shape'])}")
+    out = {}
+    for name, got in (("wind_bus", wind_bus), ("pv_bus", pv_bus)):
+        want = ref[name].astype(np.float64)
+        diff = float(np.abs(got.double().cpu().numpy() - want).max())
+        scale = float(np.abs(want).max())
+        log(f"  {name} against the JAX step (stored, {JAX_STEP_REFERENCE.name}): max abs diff "
+            f"{diff:.3e} = {diff / scale:.3e} of max {scale:.4g}")
+        if not diff <= JAX_TOL * scale:
+            raise RuntimeError(f"{name}: the card's step differs from JAX's by {diff}")
+        out[name] = diff
+    return out
+
+
 def cuda_ms(fn, reps, warmup=2):
     """Mean ms of fn() on the card, by CUDA events around ``reps`` calls."""
     for _ in range(warmup):
@@ -394,6 +443,21 @@ def chunk_steps(prof):
         for steps, (_, ms) in zip(out.values(), sorted(copies)):
             steps["copy"] = ms
     return out, len(copies)
+
+
+def staging_gate(label, chunks, windows):
+    """Raise unless a streamed call staged every chunk through the card's
+    copy stream: each window ran each step's range (host records, always
+    kept) and packed on the host, and the streamer counted one copy to
+    the card a chunk (``convert._Stager.copies``, reset before the call;
+    the trace may drop a transfer, the count does not)."""
+    copies = conv._Stager.copies
+    staged = list(chunks) == windows and copies == len(windows) and all(
+        {"pack", "copy", "convert", "aggregate"} <= set(c) and c["pack"] > 0
+        for c in chunks.values())
+    if not staged:
+        raise RuntimeError(f"{label}: chunks not staged through the card's copy stream "
+                           f"({copies} copies counted for {len(windows)} chunks): {chunks}")
 
 
 def step_ms(ms, fmt):
@@ -508,6 +572,7 @@ def timed_mode(name, mode, fn, kw, shape, windows, band_flops):
     "chunks"}."""
     B, T, C = shape
     wind_pv_bus_megakernel.launches = bsr_spmm_kernel.launches = 0
+    conv._Stager.copies = 0
     torch.cuda.synchronize()
     with profiled() as prof:
         t0 = time.perf_counter()
@@ -518,16 +583,9 @@ def timed_mode(name, mode, fn, kw, shape, windows, band_flops):
     if vals.shape != (B, T) or not np.isfinite(vals).all():
         raise RuntimeError(f"{name} {mode}: {vals.shape}, finite "
                            f"{np.isfinite(vals).all()}, want ({B}, {T})")
-    # staged: every chunk ran each step's range (host records, always
-    # kept) and packed on the host, and the trace holds a pinned
-    # transfer, which only the streamer's side stream makes
     chunks, n_copies = chunk_steps(prof)
-    staged = list(chunks) == windows and n_copies >= 1 and all(
-        {"pack", "copy", "convert", "aggregate"} <= set(c) and c["pack"] > 0
-        for c in chunks.values())
-    if kw.get("time_chunk") and not staged:
-        raise RuntimeError(f"{name} {mode}: chunks not staged through the card's "
-                           f"copy stream ({n_copies} pinned transfers): {chunks}")
+    if kw.get("time_chunk"):
+        staging_gate(f"{name} {mode}", chunks, windows)
     lost = sum(c[k] == 0 for c in chunks.values() for k in ("copy", "convert", "aggregate"))
     idle = device_idle(prof, wall * 1e3)
     log(f"  {name} {mode}: {wall:.3f} s = {T * C / wall:.4g} cell-hours/s "
@@ -535,7 +593,8 @@ def timed_mode(name, mode, fn, kw, shape, windows, band_flops):
         f"kernel launches {wind_pv_bus_megakernel.launches + bsr_spmm_kernel.launches}"
         + ("" if idle is None else
            f"; device busy {idle[0]:.1f} ms, idle share {idle[1]:.3f}")
-        + (f"; {n_copies} pinned transfers in the trace, {lost} step(s) of the "
+        + (f"; {conv._Stager.copies} copies to the card counted by the streamer, {n_copies} "
+           f"pinned transfers in the trace, {lost} step(s) of the "
            "split not in it" if kw.get("time_chunk") else ""))
     for (c0, c1), c in chunks.items():
         pin = c.get("pin", 0.0)
@@ -2031,9 +2090,6 @@ INGEST_DIR = Path(__file__).resolve().parent / "build" / "ingest_phase"
 # hours, so it is cut to 8 days to stay near 150 s
 INGEST_DAYS = 8
 INGEST_NBITS = 16           # GRIB simple packing, the width CDS ships ERA5 single levels in
-# the streamed calls' chunk: several chunks a call, as phase 10 has, since the
-# trace may drop a chunk's pinned transfer and the staging gate needs one
-INGEST_CHUNK = 48
 NC_ENCODING = {"zlib": True, "complevel": 1, "shuffle": True}
 NC_FILL = np.int16(-32767)
 # the format of each feature's file (its variables: era5_raw)
@@ -2504,12 +2560,13 @@ def ingest_phase(cut, matrix, card, in_memory):
     log(f"  (d) resident staging from the store's memory maps: {time.perf_counter() - t_part:.2f}"
         " s (set-up)")
     nb, W = banded_width(matrix)
-    band_flops = 2 * nb * 128 * W * INGEST_CHUNK
+    band_flops = 2 * nb * 128 * W * hours
+    # the streamed calls stage the whole span as one chunk
     modes = {"resident": CONT_MODES["resident"],
-             "streamed int16": dict(CONT_MODES["streamed int16"], time_chunk=INGEST_CHUNK)}
-    windows = [(t, min(t + INGEST_CHUNK, hours)) for t in range(0, hours, INGEST_CHUNK)]
+             "streamed int16": dict(CONT_MODES["streamed int16"], time_chunk=hours)}
+    windows = [(0, hours)]
     runs = continental_runs(era, matrix)
-    runs["pv"](time_chunk=INGEST_CHUNK)  # set-up: the pinned buffers
+    runs["pv"](time_chunk=hours)  # set-up: the pinned buffers
     out, call_entry = {}, {}
     for mode, kw in modes.items():
         for name, fn in runs.items():
@@ -2605,6 +2662,348 @@ def ingest_phase(cut, matrix, card, in_memory):
     return entries
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: a full year on the card
+# ---------------------------------------------------------------------------
+# (a) the BASELINE.md gates of tests/test_fullyear.py: literals, so that no
+# JAX is needed here
+YEAR_GATES_KW = dict(module="synthetic", x=slice(-4, 3.75), y=slice(50, 55.75), time="2013",
+                     dtype="float64")
+YEAR_PINS = {"wind annual CF (Vestas_V112_3MW)": 0.511356830734,
+             "PV annual CF (CSi, latitude_optimal)": 0.163772480245,
+             "heat demand, sum of the 365 days": 3.3901346450e6,
+             "runoff normalized to 5000 over 2013": 5000.0}
+PIN_RTOL = 1e-6
+# (b) a year at the bench grid, 96 x 128 cells of 0.25 deg (bench.py's
+# shape, on the 0.25 deg lattice from bench.py's south-west corner), 20
+# regions, streamed a month at a time
+YEAR_BOX = dict(x=slice(-12, 19.75), y=slice(35, 58.75))
+YEAR_GRID = (96, 128)
+YEAR_CHUNK = 730
+YEAR_REGIONS = (4, 5)
+RUNOFF_TOTAL = 5000.0  # a year's runoff a region, for normalize_using_yearly
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples_torch"
+
+
+def oedb_rows():
+    """Rows of a stub OEDB turbine library: the registry's Vestas V112 3MW
+    (its curve in kW, its hub height), a second turbine and one without a
+    power curve."""
+    conf = resource.load_yaml(resource.windturbines["Vestas_V112_3MW"])
+    kw = [f"{float(p) * 1e3:.10g}" for p in conf["POW"]]
+    if not np.array_equal(np.array(json.loads("[" + ", ".join(kw) + "]")) / 1e3,
+                          np.array(conf["POW"], dtype=float)):
+        raise RuntimeError("the kW curve does not give the registry's MW curve back")
+    return [
+        {"id": 1, "name": "V112", "turbine_type": "V112/3000", "manufacturer": "Vestas",
+         "has_power_curve": True, "power_curve_wind_speeds": json.dumps(
+             [float(v) for v in conf["V"]]), "power_curve_values": "[" + ", ".join(kw) + "]",
+         "hub_height": f"{conf['HUB_HEIGHT']:g}", "source": "the registry's datasheet curve"},
+        {"id": 2, "name": "E-101", "turbine_type": "E-101/3050", "manufacturer": "Enercon",
+         "has_power_curve": True, "power_curve_wind_speeds": "[3, 6, 9, 12, 25]",
+         "power_curve_values": "[0, 500, 2000, 3050, 3050]", "hub_height": "99;135",
+         "source": "stub"},
+        {"id": 3, "name": "NoCurve", "turbine_type": "X", "manufacturer": "Y",
+         "has_power_curve": False, "power_curve_wind_speeds": None,
+         "power_curve_values": None, "hub_height": "100", "source": "stub"},
+    ]
+
+
+class StubRequests:
+    """``requests`` in ``sys.modules`` for a block: a module whose ``get``
+    answers with ``rows`` and counts its calls, so that the OEDB search runs
+    its real fetch, filter, cache and registry code with nothing sent out;
+    the previous module (or its absence) and the search's cache come back
+    after."""
+
+    def __init__(self, rows):
+        self.rows, self.calls = rows, []
+
+    def __enter__(self):
+        rows, calls = self.rows, self.calls
+
+        class Response:
+            def json(self):
+                return [dict(r) for r in rows]
+
+        def get(url, **kw):
+            calls.append(url)
+            return Response()
+
+        self.stub = type(sys)("requests")
+        self.stub.get = get
+        self.saved = sys.modules.get("requests")
+        sys.modules["requests"] = self.stub
+        resource._oedb_turbines = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            sys.modules.pop("requests", None)
+        else:
+            sys.modules["requests"] = self.saved
+        resource._oedb_turbines = None
+        return False
+
+
+def year_gates(card):
+    """18 (a): tests/test_fullyear.py's pinned numbers on a float64 year on
+    the card; returns {name: (got, want)}."""
+    t0 = time.perf_counter()
+    c = Cutout(**YEAR_GATES_KW).prepare()
+    T, (Y, X) = len(c.grid_desc.time), c.shape
+    log(f"  (a) BASELINE.md's gates: synthetic 2013, {T} h x {Y} x {X} cells, float64, on "
+        f"{card}; prepared on the host in {time.perf_counter() - t0:.1f} s")
+    if (T, Y, X) != (8760, 24, 32) or c.fields()["wnd100m"].device.type != "cuda":
+        raise RuntimeError(f"the gates' year is {(T, Y, X)} on {c.fields()['wnd100m'].device}")
+    t0 = time.perf_counter()
+    wind = c.wind("Vestas_V112_3MW", aggregate_time=None).values
+    pv = c.pv(panel="CSi", orientation="latitude_optimal", aggregate_time=None).values
+    hd = c.heat_demand(aggregate_time=None)
+    runoff = c.runoff(layout=c.uniform_layout(), normalize_using_yearly={2013: {0: RUNOFF_TOTAL}},
+                      aggregate_time=None).values
+    monthly_cf = c.wind("Vestas_V112_3MW", layout=c.uniform_layout(), per_unit=True,
+                        aggregate_time=None)
+    months = monthly_cf.coords["time"].astype("datetime64[M]")
+    monthly = np.array([monthly_cf.values[0, months == m].mean() for m in np.unique(months)])
+    torch.cuda.synchronize()
+    got = dict(zip(YEAR_PINS, (float(wind.mean()), float(pv.mean()), float(hd.values.sum()),
+                               float(runoff.sum()))))
+    for name, want in YEAR_PINS.items():
+        ok = abs(got[name] - want) <= PIN_RTOL * abs(want)
+        log(f"    {name}: {got[name]:.12g} against {want:.12g} (rtol {PIN_RTOL}): "
+            f"{'held' if ok else 'NOT HELD'}")
+        if not ok:
+            raise RuntimeError(f"full-year gate {name}: {got[name]} against {want}")
+    if hd.sizes["time"] != 365 or len(monthly) != 12 or not (0 < monthly.min() < monthly.max() < 1):
+        raise RuntimeError(f"heat demand days {hd.sizes['time']}, monthly means {monthly}")
+    log(f"    365 heat-demand days; 12 monthly wind means in (0, 1): {np.round(monthly, 4)}; "
+        f"the five conversions took {time.perf_counter() - t0:.2f} s")
+    return {k: (got[k], YEAR_PINS[k]) for k in YEAR_PINS}
+
+
+def year_call(label, fn, kw, cells, windows=None):
+    """One call of phase 18 (b) under torch.profiler: wall s, cell-hours/s,
+    idle share and, streamed, the staging gate and the per-chunk pack /
+    copy / convert ms (their range over the chunks).  Returns {"vals",
+    "wall", "idle", "chunks"}."""
+    conv._Stager.copies = 0
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        res = fn(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    vals = np.asarray(res.values)
+    if not np.isfinite(vals).all():
+        raise RuntimeError(f"{label}: non-finite values")
+    idle = device_idle(prof, wall * 1e3)
+    log(f"    {label}: {wall:.3f} s = {cells / wall:.4g} cell-hours/s (host work included, "
+        f"under torch.profiler); {trace_note(idle)}")
+    chunks = None
+    if windows is not None:
+        chunks, n_pinned = chunk_steps(prof)
+        staging_gate(label, chunks, windows)
+
+        def spread(step):
+            ms = [c[step] - (c.get("pin", 0.0) if step == "pack" else 0.0)
+                  for c in chunks.values() if c[step]]
+            return (f"{min(ms):.1f}-{max(ms):.1f} ms ({len(ms)} of {len(chunks)} in the trace)"
+                    if ms else "not in the trace")
+
+        log(f"      {len(windows)} chunks, {conv._Stager.copies} copies to the card counted "
+            f"by the streamer ({n_pinned} pinned transfers in the trace): pack "
+            f"{spread('pack')}, copy {spread('copy')}, convert {spread('convert')}, "
+            f"aggregate {spread('aggregate')} a chunk")
+    return {"vals": vals, "wall": wall, "idle": idle and idle[1], "chunks": chunks}
+
+
+def examples_on_card(card):
+    """18 (c): every examples_torch/*.py in a subprocess on the card, all
+    started together; rc 0 and some output each.  An example that stops
+    only because matplotlib is not installed is reported as not run."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", MPLBACKEND="Agg")
+    t0 = time.perf_counter()
+    procs = {path.stem: subprocess.Popen([sys.executable, str(path)], env=env,
+                                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True)
+             for path in sorted(EXAMPLES_DIR.glob("*.py"))}
+    ran, not_run, failed = [], [], []
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        if proc.returncode != 0 and "No module named 'matplotlib'" in err:
+            not_run.append(name)
+            log(f"    {name}: not run: matplotlib is not installed on this machine")
+            continue
+        log(f"    {name}: rc {proc.returncode}, {len(out.splitlines())} lines; last: {last[:100]}")
+        if proc.returncode == 0 and out.strip():
+            ran.append(name)
+        else:
+            failed.append(name)
+            log(f"      stderr: {err[-1500:]}")
+    log(f"  (c) {len(ran)} of {len(procs)} examples ran on {card} in "
+        f"{time.perf_counter() - t0:.1f} s" + (f"; not run: {not_run}" if not_run else ""))
+    if failed:
+        raise RuntimeError(f"examples failed on the card: {failed}")
+    return {"ran": ran, "not_run": not_run}
+
+
+def year_phase(card):
+    """Phase 18: (a) the full-year gates on the card; (b) a year at the bench
+    grid: an OEDB turbine through the stub library against the registry's,
+    PV, heat demand and normalized runoff, resident and streamed int16 a
+    month at a time, and the fused step at T = 8760 against its plain
+    version; (c) the port's examples on the card.  Returns its JSON
+    entry."""
+    log(f"full year on {card}:")
+    gates = year_gates(card)
+    gc.collect()
+
+    Y, X = YEAR_GRID
+    t0 = time.perf_counter()
+    with PeakRSS() as rss:
+        cut = Cutout(module="synthetic", time="2013", **YEAR_BOX)
+        cut.prepare(features=["wind", "influx", "temperature", "runoff", "height"])
+    prep_s = time.perf_counter() - t0
+    T = len(cut.grid_desc.time)
+    C = Y * X
+    if (T,) + cut.shape != (8760, Y, X):
+        raise RuntimeError(f"the bench-grid year is {(T,) + cut.shape}")
+    matrix = region_matrix(cut, *YEAR_REGIONS)
+    B = matrix.shape[0]
+    field_gb = T * C * 4 / 1e9
+    log(f"  (b) a year at the bench grid: T={T} h, {Y} x {X} cells of 0.25 deg, float32 "
+        f"({field_gb:.2f} GB "
+        f"a field), {len(cut.data)} variables prepared on the host in {prep_s:.1f} s (peak host "
+        f"memory {rss.peak / 1e9:.2f} GB, {(rss.peak - rss.start) / 1e9:.2f} GB above entry); "
+        f"({B}, {C}) matrix of {YEAR_REGIONS[0]} x {YEAR_REGIONS[1]} regions, route "
+        f"{aggregation_route(matrix)[2]}")
+    t0 = time.perf_counter()
+    fields = cut.fields()
+    torch.cuda.synchronize()
+    log(f"    resident staging: {len(fields)} fields on the card in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+
+    with StubRequests(oedb_rows()) as stub:
+        oedb = resource.get_windturbineconfig("oedb:V112")
+    name = "Vestas_V112_3000"
+    if len(stub.calls) != 1 or resource.windturbines.get(name) is None:
+        raise RuntimeError(f"the OEDB search made {len(stub.calls)} requests, registered "
+                           f"{name in resource.windturbines}")
+    log(f"    OEDB: 'oedb:V112' found {oedb['manufacturer']} {oedb['name']} ({len(oedb['V'])} "
+        f"knots, P {oedb['P']} MW, hub {oedb['hub_height']} m) in a stub library of "
+        f"{len(stub.rows)} rows (1 request, nothing sent out), registered as {name!r}")
+
+    month = dict(time_chunk=YEAR_CHUNK, stream_pack="int16")
+    runoff_stats = {2013: {b: RUNOFF_TOTAL for b in range(B)}}
+    calls = {
+        "wind oedb": (lambda **k: cut.wind("oedb:V112", matrix=matrix, aggregate_time=None, **k),
+                      conv.convert_wind),
+        "wind registry": (lambda **k: cut.wind("Vestas_V112_3MW", matrix=matrix,
+                                               aggregate_time=None, **k), conv.convert_wind),
+        "pv": (lambda **k: cut.pv(panel="CSi", orientation="latitude_optimal", matrix=matrix,
+                                  aggregate_time=None, **k), conv.convert_pv),
+        "heat demand": (lambda **k: cut.heat_demand(matrix=matrix, aggregate_time=None, **k),
+                        conv.convert_heat_demand),
+        "runoff": (lambda **k: cut.runoff(matrix=matrix, normalize_using_yearly=runoff_stats,
+                                          aggregate_time=None, **k), conv.convert_runoff),
+    }
+    with StubRequests(oedb_rows()):
+        calls["pv"][0](**month)  # set-up: the pinned buffers, sized by PV's chunk
+        out, entries = {}, []
+        for label, (fn, func) in calls.items():
+            windows = [(t0, t1) for t0, t1, _ in conv._stream_windows(cut, func, YEAR_CHUNK, {})]
+            for mode, kw in (("resident", {}), ("streamed int16", month)):
+                r = year_call(f"{label} {mode}", fn, kw, T * C,
+                              windows if mode != "resident" else None)
+                out[label, mode] = r["vals"]
+                entries.append({"name": label, "mode": mode, "wall_s": r["wall"],
+                                "cell_hours_per_s": T * C / r["wall"], "idle": r["idle"]})
+
+    log("    checks:")
+    for mode in ("resident", "streamed int16"):
+        same = np.array_equal(out["wind oedb", mode], out["wind registry", mode])
+        log(f"      wind('oedb:V112') {mode} equals wind('Vestas_V112_3MW') bit for bit: {same}")
+        if not same:
+            raise RuntimeError(f"the OEDB turbine's {mode} series differ from the registry's")
+    for label in ("wind registry", "pv", "heat demand", "runoff"):
+        res = out[label, "resident"]
+        diff = np.abs(out[label, "streamed int16"] - res)
+        scale = float(np.abs(res).max())
+        log(f"      {label}: int16 vs resident max {diff.max():.3e}, p999 "
+            f"{np.quantile(diff, 0.999):.3e} (max |resident| {scale:.4g})")
+        bounds = ((np.quantile(diff, 0.999), 3e-3), (diff.max(), 2e-2)) if label == "pv" else \
+            ((diff.max(), 3e-3),)
+        for got, rel in bounds:
+            if not got < rel * scale:
+                raise RuntimeError(f"{label}: int16 vs resident {got} above {rel} * {scale}")
+    if out["heat demand", "resident"].shape != (B, 365):
+        raise RuntimeError(f"heat demand {out['heat demand', 'resident'].shape}")
+    for mode in ("resident", "streamed int16"):
+        sums = out["runoff", mode].sum(axis=1)
+        log(f"      runoff {mode}: each region's year sums to {sums.min():.6g}..{sums.max():.6g}")
+        if not np.allclose(sums, RUNOFF_TOTAL, rtol=1e-5):
+            raise RuntimeError(f"runoff {mode} sums {sums} are not {RUNOFF_TOTAL}")
+    sub = cut.isel_time(0, 48)
+    cpu = Cutout(data=sub.data, grid_desc=sub.grid_desc, attrs=sub.attrs,
+                 var_attrs=sub.var_attrs, device="cpu")
+    for label, want in (("wind registry", cpu.wind("Vestas_V112_3MW", matrix=matrix,
+                                                   aggregate_time=None).values),
+                        ("pv", cpu.pv(panel="CSi", orientation="latitude_optimal",
+                                      matrix=matrix, aggregate_time=None).values)):
+        diff = np.abs(out[label, "resident"][:, :48] - want)
+        scale = float(np.abs(want).max())
+        log(f"      {label}, first 48 h against the CPU: max {diff.max():.3e} (max |CPU| "
+            f"{scale:.4g})")
+        bound = REL_TOL if label != "pv" else 2e-2
+        if not diff.max() <= bound * scale:
+            raise RuntimeError(f"{label}: card vs CPU {diff.max()} above {bound} * {scale}")
+
+    # the fused step at T = 8760 with the OEDB turbine's curve
+    dev = fields["wnd100m"].device
+    lat = torch.as_tensor(cut.grid_desc.y, dtype=torch.float32, device=dev)
+    lon = torch.as_tensor(cut.grid_desc.x, dtype=torch.float32, device=dev)
+    V = torch.as_tensor(oedb["V"], dtype=torch.float32, device=dev)
+    POWn = torch.as_tensor(oedb["POW"] / oedb["P"], dtype=torch.float32, device=dev)
+    dense = torch.as_tensor(matrix.toarray(), dtype=torch.float32, device=dev)
+    step_args = ({k: fields[k] for k in FIELD_ORDER}, None, lon, lat, V, POWn, dense)
+    step = step_fn()
+    wind_pv_bus_megakernel.launches = 0
+    got_w, got_p = step(*step_args)
+    torch.cuda.synchronize()
+    launches = wind_pv_bus_megakernel.launches
+    flat, lat_cell, _, _, _ = flat_args(step_args)
+    want_w, want_p = wind_pv_bus_plain(flat, lat_cell, dense, V, POWn, PANEL, HUB_HEIGHT)
+    err = max(compare("year wind_bus (oedb curve)", got_w, want_w),
+              compare("year pv_bus", got_p, want_p))
+    ms = cuda_ms(lambda: step(*step_args), reps=10)
+    K = V.shape[0]
+    n_bytes = 4 * (9 * T * C + C + B * C + 2 * K + 2 * T * B)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"    fused step at T={T} ({launches} launch): {ms:.4f} ms = {T * C / ms * 1e3:.4g} "
+        f"cell-hours/s; byte bound {bound_ms:.4f} ms ({n_bytes / 1e9:.3f} GB at 3.35 TB/s), "
+        f"{bound_ms / ms:.1%} of it; on {card}")
+    if launches != 1:
+        raise RuntimeError(f"the year's step launched the fused kernel {launches} times")
+    del fields, step_args, flat, got_w, got_p, want_w, want_p, dense
+    cut = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    examples = examples_on_card(card)
+    return {"gates": gates, "grid": [T, Y, X], "B": B, "prepare_s": prep_s,
+            "peak_host_gb": rss.peak / 1e9, "calls": entries,
+            "step": {"ms": ms, "bound_ms": bound_ms, "launches": launches,
+                     "max_abs_err": err},
+            "examples": examples, "card": card}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2656,6 +3055,7 @@ def main():
         if not torch.isfinite(out).all():
             raise RuntimeError(f"{name}: non-finite values")
     log(f"  wind_bus mean {float(wind_bus.mean()):.6g}, pv_bus mean {float(pv_bus.mean()):.6g}")
+    jax_diff = against_jax_step(wind_bus, pv_bus)
     again = wind_pv_bus_megakernel(*flat_args(args), PANEL, HUB_HEIGHT)
     if not (torch.equal(again[0], wind_bus) and torch.equal(again[1], pv_bus)):
         raise RuntimeError("a second call gave other bits: the sums are not in a fixed order")
@@ -2816,10 +3216,17 @@ def main():
     t0 = time.perf_counter()
     ingest = ingest_phase(cut, matrix, card, in_memory)
     log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    del cut, matrix, in_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    year = year_phase(card)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"converters": converters}), flush=True)
     print(json.dumps({"availability": availability}), flush=True)
     print(json.dumps({"multidevice": multi}), flush=True)
     print(json.dumps({"ingest": ingest}), flush=True)
+    print(json.dumps({"year": year}), flush=True)
     sharded8 = next(r for r in multi["sharded_step"] if r["shards"] == N_SHARDS)
 
     kernels = [{
@@ -2844,6 +3251,7 @@ def main():
         "sharded_ms": sharded8["ms"],
         "sharded_unsharded_ms": multi["unsharded_step_ms"],
         "sharded_max_abs_err": multi["err"],
+        "jax_step_max_abs_diff": jax_diff,
     }, bsr_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

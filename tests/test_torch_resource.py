@@ -51,10 +51,22 @@ def test_configs_are_copies():
 
 
 @pytest.mark.parametrize("getter, name", [(tres.get_windturbineconfig, "Enercon_E82_3000kW")])
-def test_other_names_raise(getter, name):
-    """The OEDB search downloads: its names raise; registry names load."""
-    with pytest.raises(NotImplementedError, match="OEDB"):
+def test_other_names_raise(getter, name, monkeypatch):
+    """An ``oedb:`` name searches the OEDB library (a mocked empty one
+    here: nothing is downloaded) and raises when it holds no such
+    turbine; registry names load."""
+    import requests
+
+    class Empty:
+        def json(self):
+            return []
+
+    calls = []
+    monkeypatch.setattr(requests, "get", lambda url, **kw: calls.append(url) or Empty())
+    monkeypatch.setattr(tres, "_oedb_turbines", None)
+    with pytest.raises(RuntimeError, match="No turbine found"):
         getter("oedb:" + name)
+    assert len(calls) == 1
     assert getter(name)["P"] == jres.get_windturbineconfig(name)["P"]
     with pytest.raises(KeyError, match="available"):
         getter(name + "_XL")
