@@ -19,6 +19,7 @@ import scipy.sparse as sp
 import torch
 
 from atlite_tpu_torch.dataarray import DataArray
+from atlite_tpu_torch.profiling import span
 
 # the JAX package's limit between the dense and the banded path; read at
 # call time
@@ -72,7 +73,8 @@ def spmm_closure(matrix, resident=True):
     field's device and dtype at the first call and kept there, so a
     streamed conversion moves only the (T_chunk, B) series back.
     ``resident=False`` stages each dense row chunk of an unbanded large
-    matrix for one product and releases it.
+    matrix for one product and releases it.  Each staging runs in a
+    ``copy`` span of the enclosing call's hours.
     """
     # imported here: ops.bsr_spmm imports this module
     from atlite_tpu_torch.ops.bsr_spmm import (
@@ -89,7 +91,8 @@ def spmm_closure(matrix, resident=True):
     def staged(flat, make):
         key = (flat.device, flat.dtype)
         if state.get("key") != key:
-            state["key"], state["value"] = key, make(flat)
+            with span("copy"):
+                state["key"], state["value"] = key, make(flat)
         return state["value"]
 
     if B * C <= _DENSE_LIMIT:
@@ -116,8 +119,9 @@ def spmm_closure(matrix, resident=True):
     row_chunk = max(1, _DENSE_LIMIT // C)
 
     def chunk(flat, b0):
-        return torch.as_tensor(matrix[b0:b0 + row_chunk].toarray(), dtype=flat.dtype,
-                               device=flat.device)
+        with span("copy"):
+            return torch.as_tensor(matrix[b0:b0 + row_chunk].toarray(), dtype=flat.dtype,
+                                   device=flat.device)
 
     def run_chunked(flat):
         starts = range(0, B, row_chunk)

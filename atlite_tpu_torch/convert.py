@@ -9,10 +9,13 @@ temporal aggregation around a converter, resident or streamed over time
 chunks.  The streamer (``_chunked_convert``) packs chunk k+1 on a worker
 thread into one of two pinned host buffers and copies it to the card on a
 side stream while chunk k converts; the aggregation runs inside each chunk,
-so only the (bus, T_chunk) series stay behind on the card.  Each streamed
-step runs in a ``torch.profiler.record_function`` range named
-``"<step> <t0>:<t1>"`` (pin, pack, copy, convert, aggregate), which a
-profiler reads per chunk and which costs next to nothing without one.
+so only the (bus, T_chunk) series stay behind on the card.  Each step
+runs in a ``profiling.span`` named ``"<step> <t0>:<t1>"`` (pin, pack,
+copy, convert, aggregate), which a profiler reads per chunk and which
+costs next to nothing without one.  A resident call is the one chunk
+0:T: ``pack`` covers the technology lookup and the matrix composition,
+``convert`` the converter, ``aggregate`` the aggregation and the per-unit
+scaling, and ``copy`` each upload to the device inside them.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from pathlib import Path
 import numpy as np
 import scipy.sparse as sp
 import torch
-from torch.profiler import record_function
 
 from atlite_tpu_torch.aggregate import aggregate_matrix, spdiag, spmm_closure
 from atlite_tpu_torch.core import timeutil
@@ -43,6 +45,7 @@ from atlite_tpu_torch.physics import line_rating as line_rating_physics
 from atlite_tpu_torch.physics import orientation, solar, thermal
 from atlite_tpu_torch.physics import pv as pv_physics
 from atlite_tpu_torch.physics import wind as wind_physics
+from atlite_tpu_torch.profiling import span
 from atlite_tpu_torch.resource import (
     get_cspinstallationconfig,
     get_solarpanelconfig,
@@ -163,6 +166,52 @@ def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=
 
     # the matrix is composed before converting: the streamer aggregates
     # inside each chunk
+    T = len(cutout.grid_desc.time)
+    with span("pack", 0, T):
+        matrix, index, bus_name = _compose_matrix(cutout, matrix, index, layout, shapes,
+                                                  shapes_crs)
+
+    da = None
+    if sharded:
+        results = _sharded_convert(cutout, convert_func, aggregate=(matrix, index, bus_name),
+                                   **convert_kwds)
+    elif time_chunk:
+        results = _chunked_convert(cutout, convert_func, time_chunk,
+                                   aggregate=(matrix, index, bus_name),
+                                   stream_pack=stream_pack, **convert_kwds)
+    else:
+        with span("convert", 0, T):
+            da = convert_func(cutout, **convert_kwds)
+
+    with span("aggregate", 0, T):
+        if da is not None:
+            results = aggregate_matrix(da, matrix=matrix, index=index, index_name=bus_name)
+        capacity = None
+        if per_unit or return_capacity:
+            caps = np.asarray(matrix.sum(axis=-1)).ravel()
+            capacity = DataArray(caps, coords={results.dims[0]: index},
+                                 dims=(results.dims[0],), attrs={"units": "MW"})
+        if per_unit:
+            caps = capacity.values
+            scale = np.where(caps != 0, 1.0 / np.where(caps != 0, caps, 1.0), 0.0)
+            # NaN hours and zero-capacity buses come back as 0.0 (reference fillna(0))
+            scaled = results.values * scale[:, None]
+            results = results.copy(np.where(np.isnan(scaled), 0.0, scaled))
+            results.attrs["units"] = "p.u."
+        else:
+            results.attrs["units"] = "MW"
+
+        if aggregate_time != "legacy":
+            results = _aggregate_time_da(results, aggregate_time)
+        results = maybe_progressbar(results, show_progress)
+    if return_capacity:
+        return results, capacity
+    return results
+
+
+def _compose_matrix(cutout, matrix, index, layout, shapes, shapes_crs):
+    """(csr matrix, index, bus name) of a call's ``matrix``, ``shapes``
+    and ``layout``."""
     if matrix is not None:
         if shapes is not None:
             raise ValueError("Passing matrix and shapes is ambiguous. Pass only one of them.")
@@ -189,39 +238,7 @@ def convert_and_aggregate(cutout, convert_func, matrix=None, index=None, layout=
     index = np.arange(matrix.shape[0]) if index is None else np.asarray(index)
     if index.ndim != 1:
         raise ValueError("index must have a single dimension")
-
-    if sharded:
-        results = _sharded_convert(cutout, convert_func, aggregate=(matrix, index, bus_name),
-                                   **convert_kwds)
-    elif time_chunk:
-        results = _chunked_convert(cutout, convert_func, time_chunk,
-                                   aggregate=(matrix, index, bus_name),
-                                   stream_pack=stream_pack, **convert_kwds)
-    else:
-        da = convert_func(cutout, **convert_kwds)
-        results = aggregate_matrix(da, matrix=matrix, index=index, index_name=bus_name)
-
-    capacity = None
-    if per_unit or return_capacity:
-        caps = np.asarray(matrix.sum(axis=-1)).ravel()
-        capacity = DataArray(caps, coords={results.dims[0]: index},
-                             dims=(results.dims[0],), attrs={"units": "MW"})
-    if per_unit:
-        caps = capacity.values
-        scale = np.where(caps != 0, 1.0 / np.where(caps != 0, caps, 1.0), 0.0)
-        # NaN hours and zero-capacity buses come back as 0.0 (reference fillna(0))
-        scaled = results.values * scale[:, None]
-        results = results.copy(np.where(np.isnan(scaled), 0.0, scaled))
-        results.attrs["units"] = "p.u."
-    else:
-        results.attrs["units"] = "MW"
-
-    if aggregate_time != "legacy":
-        results = _aggregate_time_da(results, aggregate_time)
-    results = maybe_progressbar(results, show_progress)
-    if return_capacity:
-        return results, capacity
-    return results
+    return matrix, index, bus_name
 
 
 def _align_layout(layout, cutout):
@@ -367,7 +384,7 @@ class _Stager:
             if buffers[i] is None or buffers[i].numel() < nbytes:
                 # a pinned allocation stalls the card: size both buffers
                 # together, before any chunk of this call computes
-                with record_function(f"pin {t0}:{t1}"):
+                with span("pin", t0, t1):
                     for j in (0, 1):
                         if copied[j] is not None:
                             copied[j].synchronize()
@@ -375,14 +392,14 @@ class _Stager:
                             buffers[j] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
             return buffers[i][:nbytes].view(tdt).view(shape)
 
-        with record_function(f"pack {t0}:{t1}"):
+        with span("pack", t0, t1):
             batch = sub._pack(dtype, alloc)
         if batch["host"] is None or not self.cuda:
             sub._fields_cache = (dtype, sub._unpack(batch, batch["host"], dtype))
             return sub, None
         stream = pinned["stream"]
         with torch.cuda.stream(stream):
-            with record_function(f"copy {t0}:{t1}"):
+            with span("copy", t0, t1):
                 dev = batch["host"].to(self.cutout.device, non_blocking=True)
             _Stager.copies += 1
             pinned["copied"][i] = torch.cuda.Event()
@@ -445,11 +462,11 @@ def _chunked_convert(cutout, convert_func, time_chunk, aggregate=None, stream_pa
             if i + 1 < len(windows):
                 fut = ex.submit(stager.stage, windows[i + 1][0], windows[i + 1][1])
             _Stager.use(sub, ready)
-            with record_function(f"convert {t0}:{t1}"):
+            with span("convert", t0, t1):
                 da = convert_func(sub, **convert_kwds)
             tvals = da.coords["time"][drop:]
             if agg_fn is not None:
-                with record_function(f"aggregate {t0}:{t1}"):
+                with span("aggregate", t0, t1):
                     out = agg_fn(da.values.reshape(da.sizes["time"], -1)).T  # (B, Tc)
                 pieces.append(out[:, drop:])  # stays on the device
                 template = DataArray(out[:, drop:], coords={bus_name: index, "time": tvals},
@@ -643,10 +660,11 @@ def _solar_inputs(cutout, fields):
     def put(a):
         return torch.as_tensor(np.asarray(a), dtype=cutout.torch_dtype, device=cutout.device)
 
-    eph = None
-    if not ("solar_altitude" in fields and "solar_azimuth" in fields):
-        eph = {k: put(v) for k, v in timeutil.solar_ephemeris(g.time, "0h").items()}
-    return eph, put(g.x), put(g.y)
+    with span("copy"):
+        eph = None
+        if not ("solar_altitude" in fields and "solar_azimuth" in fields):
+            eph = {k: put(v) for k, v in timeutil.solar_ephemeris(g.time, "0h").items()}
+        return eph, put(g.x), put(g.y)
 
 
 def _solar_chain(fields, eph, lon, lat, orient, tracking, trigon_model, clearsky_model,
@@ -669,11 +687,18 @@ def _solar_chain(fields, eph, lon, lat, orient, tracking, trigon_model, clearsky
     return irr
 
 
+def _orientation_spec(orient):
+    """An orientation spec dict (``orientation.get_orientation``'s) of a
+    name, a parameter dict or a spec."""
+    if not isinstance(orient, dict) or "kind" not in orient:
+        orient = orientation.get_orientation(orient)
+    return orient
+
+
 def _run_solar_chain(cutout, orient, tracking=None, trigon_model="simple",
                      clearsky_model="simple", irradiation_kind="total", panel=None,
                      solar_thermal_cfg=None):
-    if not isinstance(orient, dict) or "kind" not in orient:
-        orient = orientation.get_orientation(orient)
+    orient = _orientation_spec(orient)
     fields = cutout.fields()
     eph, lon, lat = _solar_inputs(cutout, fields)
     out = _solar_chain(fields, eph, lon, lat, orient, tracking, trigon_model, clearsky_model,
@@ -714,8 +739,10 @@ def convert_pv(cutout, panel, orientation, tracking=None, trigon_model="simple",
 def pv(cutout, panel, orientation, tracking=None, clearsky_model=None,
        trigon_model="simple", **params):
     """Downward radiation + temperature -> PV generation."""
-    if isinstance(panel, (str, Path)):
-        panel = get_solarpanelconfig(panel)
+    with span("pack", 0, len(cutout.grid_desc.time)):
+        if isinstance(panel, (str, Path)):
+            panel = get_solarpanelconfig(panel)
+        orientation = _orientation_spec(orientation)
     return cutout.convert_and_aggregate(
         convert_func=convert_pv, panel=panel, orientation=orientation, tracking=tracking,
         clearsky_model=clearsky_model, trigon_model=trigon_model, **params)
@@ -754,10 +781,11 @@ def convert_wind(cutout, turbine, interpolation_method="logarithmic"):
     dt = cutout.dtype
     # POW / P rounded once in the cutout dtype, as the JAX package divides
     POWn = np.asarray(POW, dtype=dt) / dt.type(P)
-    out = _wind_pipeline(
-        fields, torch.as_tensor(np.asarray(V, dtype=dt), device=cutout.device),
-        torch.as_tensor(POWn, device=cutout.device), to_height=float(hub_height),
-        method=interpolation_method)
+    with span("copy"):
+        V = torch.as_tensor(np.asarray(V, dtype=dt), device=cutout.device)
+        POWn = torch.as_tensor(POWn, device=cutout.device)
+    out = _wind_pipeline(fields, V, POWn, to_height=float(hub_height),
+                         method=interpolation_method)
     return _tyx(cutout, out, name="specific generation", attrs={"units": "MWh/MWp"})
 
 
@@ -767,9 +795,10 @@ def wind(cutout, turbine, smooth=False, add_cutout_windspeed=False,
     is a registry name, a Path to a turbine file or a config dict;
     ``smooth`` (True or a dict of ``windturbine_smooth``'s parameters)
     convolves its power curve with a Gaussian first."""
-    turbine = get_windturbineconfig(turbine, add_cutout_windspeed=add_cutout_windspeed)
-    if smooth:
-        turbine = windturbine_smooth(turbine, params=smooth)
+    with span("pack", 0, len(cutout.grid_desc.time)):
+        turbine = get_windturbineconfig(turbine, add_cutout_windspeed=add_cutout_windspeed)
+        if smooth:
+            turbine = windturbine_smooth(turbine, params=smooth)
     return cutout.convert_and_aggregate(
         convert_func=convert_wind, turbine=turbine,
         interpolation_method=interpolation_method, **params)

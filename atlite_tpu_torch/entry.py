@@ -38,6 +38,7 @@ from atlite_tpu_torch.core.timeutil import solar_ephemeris
 from atlite_tpu_torch.datasets import synthetic
 from atlite_tpu_torch.ops.megakernel import FIELD_ORDER, knot_table, wind_pv_bus_megakernel
 from atlite_tpu_torch.physics.wind import simplify_power_curve
+from atlite_tpu_torch.profiling import span
 
 # the panel of __graft_entry__._step_fn
 PANEL = {
@@ -117,16 +118,19 @@ def step_fn():
     ``__graft_entry__._step_fn``.  ``eph`` is unused: the step takes the
     stored solar angles.  The step keeps the kernel's knot table of the
     power curve it was last given, and builds it again when the curve's
-    tensors are other ones or were written since."""
+    tensors are other ones or were written since.  Its argument building
+    runs in a ``pack 0:T`` span (and the kernel's own, with its launch in
+    ``convert 0:T``: ``wind_pv_bus_megakernel``)."""
     last = {"V": None, "POWn": None, "versions": None, "table": None}
 
     def step(fields, eph, lon, lat, V, POWn, matrix):
         T, Y, X = fields["wnd100m"].shape
-        flat = {k: fields[k].reshape(T, Y * X) for k in FIELD_ORDER}
-        lat_cell = lat.repeat_interleave(X)
-        versions = (V._version, POWn._version)
-        if last["V"] is not V or last["POWn"] is not POWn or last["versions"] != versions:
-            last.update(V=V, POWn=POWn, versions=versions, table=knot_table(V, POWn))
+        with span("pack", 0, T):
+            flat = {k: fields[k].reshape(T, Y * X) for k in FIELD_ORDER}
+            lat_cell = lat.repeat_interleave(X)
+            versions = (V._version, POWn._version)
+            if last["V"] is not V or last["POWn"] is not POWn or last["versions"] != versions:
+                last.update(V=V, POWn=POWn, versions=versions, table=knot_table(V, POWn))
         return wind_pv_bus_megakernel(flat, lat_cell, matrix, V, POWn, PANEL,
                                       hub_height=HUB_HEIGHT, table=last["table"])
 

@@ -44,6 +44,7 @@ import torch
 
 from atlite_tpu_torch.aggregate import fp32_matmul
 from atlite_tpu_torch.gis import geometry as G
+from atlite_tpu_torch.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -522,7 +523,7 @@ def _availability_on(cutout, device, edges, emask, excluder, row_tile, max_devic
         def _build(b0, b1):
             # a profiler range on the worker thread: the host's build ms
             # of each block, in a trace of the call
-            with torch.profiler.record_function(f"mask {b0}:{b1}"):
+            with span("mask", b0, b1):
                 m0, m1 = max(b0 - margin, 0), min(b1 + margin, ny)
                 sub_t = Affine(transform.a, 0.0, transform.c,
                                0.0, transform.e, transform.f + transform.e * m0)

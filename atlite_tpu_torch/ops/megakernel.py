@@ -19,6 +19,7 @@ import torch
 
 from atlite_tpu_torch import aggregate
 from atlite_tpu_torch.physics import irradiation, orientation, pv, wind
+from atlite_tpu_torch.profiling import span
 
 FIELD_ORDER = (
     "wnd100m", "roughness", "solar_altitude", "solar_azimuth",
@@ -217,36 +218,39 @@ def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=
     (built here when None; the plain version does not read it).  Returns
     (wind_bus, pv_bus), each (T, B).  CUDA tensors go through the kernel
     (``launches`` counts the launches), CPU tensors through the plain
-    version.
+    version.  On the card the argument building runs in a ``pack 0:T``
+    span, the launch in ``convert 0:T``.
     """
     T, C, B, device = _check(fields, lat_cell, matrix, V, POWn)
     if device.type == "cpu":
         return wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height)
-    if table is None:
-        table = knot_table(V, POWn)
-    if not (table.device == device and table.dtype == torch.float32 and table.is_contiguous()
-            and table.shape == (1 << (V.shape[0] - 1).bit_length(), 4)):
-        raise ValueError("table must be knot_table(V, POWn) on the fields' device")
+    with span("pack", 0, T):
+        if table is None:
+            table = knot_table(V, POWn)
+        if not (table.device == device and table.dtype == torch.float32
+                and table.is_contiguous()
+                and table.shape == (1 << (V.shape[0] - 1).bit_length(), 4)):
+            raise ValueError("table must be knot_table(V, POWn) on the fields' device")
 
-    lib = _library()
-    prm = _panel(panel)
-    # the kernel multiplies by the reciprocal, rounded once here
-    prm["r_irradiance"] = float(np.float32(1.0) / np.float32(prm["r_irradiance"]))
-    n_blocks, split, n_items = _grid(device.index, T, C, B)
-    panel_cells = torch.empty((C, 4), dtype=torch.float32, device=device)
-    part = torch.empty((2, n_items, UNIT_ROWS, B), dtype=torch.float32, device=device)
-    out = torch.empty((2, T, B), dtype=torch.float32, device=device)
-    field_ptrs = (ctypes.c_void_p * len(FIELD_ORDER))(
-        *[fields[k].data_ptr() for k in FIELD_ORDER])
-    params = (ctypes.c_float * 12)(float(hub_height), *prm.values())
-    stream = torch.cuda.current_stream(device).cuda_stream
-
-    rc = lib.wind_pv_bus_launch(
-        device.index, field_ptrs, lat_cell.data_ptr(), matrix.data_ptr(), table.data_ptr(),
-        table.shape[0], V.shape[0], T, C, B, split["block_unit"].data_ptr(),
-        split["block_item"].data_ptr(), split["tile_item"].data_ptr(), n_blocks, n_items,
-        params, panel_cells.data_ptr(), part.data_ptr(), out.data_ptr(), stream)
-    _raise_on(rc, "launch")
+        lib = _library()
+        prm = _panel(panel)
+        # the kernel multiplies by the reciprocal, rounded once here
+        prm["r_irradiance"] = float(np.float32(1.0) / np.float32(prm["r_irradiance"]))
+        n_blocks, split, n_items = _grid(device.index, T, C, B)
+        panel_cells = torch.empty((C, 4), dtype=torch.float32, device=device)
+        part = torch.empty((2, n_items, UNIT_ROWS, B), dtype=torch.float32, device=device)
+        out = torch.empty((2, T, B), dtype=torch.float32, device=device)
+        field_ptrs = (ctypes.c_void_p * len(FIELD_ORDER))(
+            *[fields[k].data_ptr() for k in FIELD_ORDER])
+        params = (ctypes.c_float * 12)(float(hub_height), *prm.values())
+        stream = torch.cuda.current_stream(device).cuda_stream
+        args = (device.index, field_ptrs, lat_cell.data_ptr(), matrix.data_ptr(),
+                table.data_ptr(), table.shape[0], V.shape[0], T, C, B,
+                split["block_unit"].data_ptr(), split["block_item"].data_ptr(),
+                split["tile_item"].data_ptr(), n_blocks, n_items, params,
+                panel_cells.data_ptr(), part.data_ptr(), out.data_ptr(), stream)
+    with span("convert", 0, T):
+        _raise_on(lib.wind_pv_bus_launch(*args), "launch")
     wind_pv_bus_megakernel.launches += 1
     return out[0], out[1]
 

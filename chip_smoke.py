@@ -439,6 +439,11 @@ def chunk_steps(prof):
         steps = out.setdefault((int(m.group(2)), int(m.group(3))), {})
         steps[step] = steps.get(step, 0.0) + ms
     out = dict(sorted(out.items()))
+    # the call's own ranges (its matrix composition and per-unit scaling,
+    # 0:T) hold every chunk and are no chunk of their own
+    whole = (min(k[0] for k in out), max(k[1] for k in out)) if out else None
+    if len(out) > 1 and whole in out:
+        del out[whole]
     if len(copies) == len(out):
         for steps, (_, ms) in zip(out.values(), sorted(copies)):
             steps["copy"] = ms

@@ -1,0 +1,10 @@
+"""The runtime's launch, copy and fill calls (``cudaLaunchKernel``,
+``cudaLaunchKernelExC``, ``cuLaunchKernel*``, ``cudaMemcpyAsync``,
+``cudaMemsetAsync``) on the calling thread inside the traced steps,
+divided by the steps."""
+
+from h100_bench.harness.spans import launches
+
+
+def read(run):
+    return launches(run, "step")
