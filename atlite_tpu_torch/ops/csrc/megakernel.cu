@@ -43,14 +43,26 @@
 //      second row (4 h later) where the cell's roughness has the same bits:
 //      on the bench's static roughness the step takes 0.54 ms, where
 //      roughness that changes every hour in every cell takes 0.58 ms;
-//   d. a balanced persistent grid: a whole number of blocks per SM (four,
-//      32 warps, up to 20 buses a pass; three above), each walking a
-//      contiguous run of units fixed by the wrapper, so that every block
-//      does the same number of units, +-1; a run is cut into items at
-//      time-tile edges, and each item writes its (8, B) partials;
+//   d. a balanced persistent grid: a whole number of blocks per SM, each
+//      walking a contiguous run of units fixed by the wrapper, so that
+//      every block does the same number of units, +-1; a run is cut into
+//      items at time-tile edges, and each item writes its (8, B) partials;
 //   e. the nine field tiles of the next unit (with its panel entries and
 //      first bus tile of the matrix) are staged by cp.async into a ring of
-//      shared-memory stages while the current unit computes.
+//      shared-memory stages while the current unit computes;
+//   f. the bus tile is chosen from B (lane_buses): up to 20 buses, one
+//      tile of 20 (four blocks, 32 warps an SM); above, tiles of 36 (three
+//      blocks: 64.9 KB of shared memory a block), so that up to 36 buses,
+//      PyPSA-Eur's 34 countries among them, take one pass.  With one tile
+//      the unit's whole (B, 64) matrix slice rides the ring with its
+//      fields, each lane keeps its buses' sums in registers over the units
+//      of an item, and the partials are written once an item.  With more,
+//      each later tile is staged while the unit waits, and every tile of
+//      every unit adds its partials to the item's: on the card above,
+//      B = 256 (8 tiles) took 6x the time of B = 20 at the bench shape.
+//      Tiles of 32 (NBL 8: 48 B of spill loads against 24) took 1.18-1.37x
+//      the time of tiles of 36 at B = 37 to 2048, and ~2x at B = 34 (two
+//      passes).
 //
 // The sums keep a fixed order (per warp over its cells, warps in order,
 // items in order; no atomics), so a second call repeats the bits.  NaN
@@ -76,7 +88,7 @@ constexpr int kThreads = 256;              // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 2;                 // ring of staged units
 constexpr int kCfPitch = kCells + 4;       // padded row of a capacity-factor tile
-constexpr int kMaxBusTile = 32;            // buses of a pass (4 x NBL)
+constexpr int kMaxBusTile = 36;            // buses of a pass (4 x NBL; design note f)
 constexpr int kMaxKnots = 256;
 constexpr int kCellsPerWarp = kCells / kWarps;  // phase 2: cells of a warp
 
@@ -123,10 +135,11 @@ struct Smem {
 };
 
 // the per-warp partials of a bus tile, reduced in flush(); they take the
-// place of the unit's field tiles, which phase 1 has read by then
+// place of the unit's field tiles, which phase 1 has read by then (36
+// buses fill them exactly)
 template <int NBL>
 using Partials = float[kWarps][2][kRows][4 * NBL];
-static_assert(sizeof(Partials<8>) <= sizeof(float) * kNumFields * kRows * kCells,
+static_assert(sizeof(Partials<kMaxBusTile / 4>) <= sizeof(float) * kNumFields * kRows * kCells,
               "the partials must fit a stage's field tiles");
 
 // blocks an SM, which sets the register budget (64 or 80 a thread): four
@@ -526,7 +539,8 @@ cudaError_t prepare(int* blocks_per_sm, int* smem_bytes) {
 }
 
 // buses of a lane: 4 lanes per row share a tile of 4 * NBL buses; 20
-// buses a pass up to B = 20 (four blocks an SM), 32 above (three)
+// buses a pass up to B = 20 (four blocks an SM), 36 above (three; design
+// note f)
 constexpr int kNarrowNbl = 5;
 int lane_buses(int B) { return B <= 4 * kNarrowNbl ? kNarrowNbl : kMaxBusTile / 4; }
 

@@ -175,9 +175,9 @@ def occupancy(device_index, B):
 
 @functools.cache
 def _grid(device_index, T, C, B):
-    """(block count, the work split on the card, n_items) of one shape: a
-    whole number of resident blocks on every SM."""
-    per_sm, _, _ = occupancy(device_index, B)
+    """(block count, the work split on the card, n_items, passes over the
+    buses) of one shape: a whole number of resident blocks on every SM."""
+    per_sm, _, bus_tile = occupancy(device_index, B)
     if per_sm < 1:
         raise RuntimeError("wind_pv_bus_megakernel: no block fits an SM")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -185,7 +185,8 @@ def _grid(device_index, T, C, B):
     device = torch.device("cuda", device_index)
     on_card = {k: torch.as_tensor(split[k], device=device)
                for k in ("block_unit", "block_item", "tile_item")}
-    return len(split["block_unit"]) - 1, on_card, len(split["item_start"]) - 1
+    n_items = len(split["item_start"]) - 1
+    return len(split["block_unit"]) - 1, on_card, n_items, -(-B // bus_tile)
 
 
 def wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height=80.0):
@@ -217,9 +218,10 @@ def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=
     ``knot_table(V, POWn)``, from a caller that keeps it across calls
     (built here when None; the plain version does not read it).  Returns
     (wind_bus, pv_bus), each (T, B).  CUDA tensors go through the kernel
-    (``launches`` counts the launches), CPU tensors through the plain
-    version.  On the card the argument building runs in a ``pack 0:T``
-    span, the launch in ``convert 0:T``.
+    (``launches`` counts the launches, ``bus_passes`` its passes over the
+    buses: ceil(B / the bus tile of ``occupancy``) a launch), CPU tensors
+    through the plain version.  On the card the argument building runs in
+    a ``pack 0:T`` span, the launch in ``convert 0:T``.
     """
     T, C, B, device = _check(fields, lat_cell, matrix, V, POWn)
     if device.type == "cpu":
@@ -236,7 +238,7 @@ def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=
         prm = _panel(panel)
         # the kernel multiplies by the reciprocal, rounded once here
         prm["r_irradiance"] = float(np.float32(1.0) / np.float32(prm["r_irradiance"]))
-        n_blocks, split, n_items = _grid(device.index, T, C, B)
+        n_blocks, split, n_items, n_passes = _grid(device.index, T, C, B)
         panel_cells = torch.empty((C, 4), dtype=torch.float32, device=device)
         part = torch.empty((2, n_items, UNIT_ROWS, B), dtype=torch.float32, device=device)
         out = torch.empty((2, T, B), dtype=torch.float32, device=device)
@@ -252,7 +254,9 @@ def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=
     with span("convert", 0, T):
         _raise_on(lib.wind_pv_bus_launch(*args), "launch")
     wind_pv_bus_megakernel.launches += 1
+    wind_pv_bus_megakernel.bus_passes += n_passes
     return out[0], out[1]
 
 
 wind_pv_bus_megakernel.launches = 0
+wind_pv_bus_megakernel.bus_passes = 0

@@ -60,9 +60,10 @@ def to_torch(flat, lat_cell, matrix, V, POWn, device="cpu"):
 @pytest.mark.parametrize("shape", [(48, 16, 24, 5), (30, 7, 13, 3), (10, 3, 5, 2)])
 def test_plain_matches_pallas_kernel(shape):
     flat, lat_cell, matrix, V, POWn, _ = flat_inputs(*shape)
-    wind_pv_bus_megakernel.launches = 0
+    wind_pv_bus_megakernel.launches = wind_pv_bus_megakernel.bus_passes = 0
     wb, pb = wind_pv_bus_megakernel(*to_torch(flat, lat_cell, matrix, V, POWn), PANEL)
-    assert wind_pv_bus_megakernel.launches == 0  # the CPU path launches nothing
+    # the CPU path launches nothing and makes no pass over the buses
+    assert wind_pv_bus_megakernel.launches == wind_pv_bus_megakernel.bus_passes == 0
     with jax.enable_x64(False):
         rw, rp = pallas_megakernel(flat, lat_cell, matrix, V, POWn, JAX_PANEL,
                                    interpret=True)

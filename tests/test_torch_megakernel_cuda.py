@@ -10,10 +10,10 @@ JAX):
 Tolerance: max abs diff within 1e-5 * max|plain| per output (float32 sums
 over the cells in another order than the plain matmul), NaN masks
 identical.  Bus counts reach both of the kernel's bus tiles (20 buses a
-pass up to B = 20, 32 above) and cross them, the power curve reaches the
-256-knot limit, a 100 m hub makes the hub speed equal the stored 100 m
-wind, so that queries fall exactly on the curve's duplicated knots, and
-the roughness changes from hour to hour.
+pass up to B = 20, 36 above, so one pass up to B = 36) and cross them,
+the power curve reaches the 256-knot limit, a 100 m hub makes the hub
+speed equal the stored 100 m wind, so that queries fall exactly on the
+curve's duplicated knots, and the roughness changes from hour to hour.
 """
 
 import numpy as np
@@ -70,7 +70,7 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [16, 20, 24, 33, 300, 2048])
+@pytest.mark.parametrize("B", [16, 20, 21, 24, 33, 34, 36, 37, 300, 2048])
 def test_kernel_across_bus_tiles(cuda_device, B):
     """Every cell-hour's physics is computed once and multiplied by each
     bus tile; NaN cells poison only the buses they touch; a second call
@@ -83,6 +83,36 @@ def test_kernel_across_bus_tiles(cuda_device, B):
     again = wind_pv_bus_megakernel(*args, PANEL)
     bits = lambda x: x.view(torch.int32)  # NaN included
     assert all(torch.equal(bits(a), bits(g)) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_one_pass_repeats_its_bits_on_ragged_cells(cuda_device):
+    """B = 34 (PyPSA-Eur's countries) in one pass over C = 189 cells, which
+    is no multiple of 4 (the kernel's 4-byte copies, as at PyPSA-Eur's
+    23,711 cells); T = 3000 gives ~3 units a block, so the sums carry
+    over units and items start inside a run; NaN cells poison only their
+    buses; a second call repeats the bits."""
+    T, Y, X, B = 3000, 9, 21, 34
+    args = card_inputs(T, Y, X, B, device=cuda_device, nan_cells=12)
+    got = wind_pv_bus_megakernel(*args, PANEL)
+    assert_close(got, wind_pv_bus_plain(*args, PANEL), (T, B))
+    assert torch.isnan(got[0]).any() and not torch.isnan(got[0]).all()
+    again = wind_pv_bus_megakernel(*args, PANEL)
+    bits = lambda x: x.view(torch.int32)
+    assert all(torch.equal(bits(a), bits(g)) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, passes", [(20, 1), (34, 1), (36, 1), (37, 2), (300, 9)])
+def test_bus_passes_per_launch(cuda_device, B, passes):
+    """``bus_passes`` adds ceil(B / bus tile) a launch: one pass up to 36
+    buses, passes of 36 above."""
+    args = card_inputs(16, 4, 16, B, device=cuda_device, nan_cells=0)
+    launches, before = wind_pv_bus_megakernel.launches, wind_pv_bus_megakernel.bus_passes
+    for _ in range(2):
+        wind_pv_bus_megakernel(*args, PANEL)
+    assert wind_pv_bus_megakernel.launches - launches == 2
+    assert wind_pv_bus_megakernel.bus_passes - before == 2 * passes
 
 
 @pytest.mark.cuda
