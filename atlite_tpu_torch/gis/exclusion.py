@@ -15,8 +15,8 @@ Pipeline per shape (atlite's shape_availability, gis.py:263-325):
      (gis.py:328-373, 707-716).
 
 The numpy implementation here is the semantics reference (the host
-path); the batched device path (every shape rasterized at once on a
-shared fine lattice, downsampled on the card) is ``gis.kernels``, which
+path); the batched device path (the shapes' windows worked in batches,
+downsampled on the card) is ``gis.kernels``, which
 ``compute_availabilitymatrix`` takes on a cutout on a CUDA card.  Shapes
 come as a list, a dict, or a pandas-like Series (its ``values`` and
 ``index``, read duck-typed: the port imports no pandas).
@@ -279,9 +279,8 @@ def build_exclusion_mask(excluder, transform, shape, crop_geoms=None):
     (projected_mask with crop=True, its gis.py:197-230): raster values
     OUTSIDE the query geometry become nodata BEFORE code selection and
     dilation, so out-of-shape pixels never act as buffer sources.  Only
-    buffered layers can tell the difference; the shape-independent
-    device mask therefore refuses buffered raster layers
-    (gis/kernels.py)."""
+    buffered layers can tell the difference inside the shape; the device
+    path (gis/kernels.py) crops them in each shape's window."""
     if not excluder.all_open:
         excluder.open_files()
     exclusions = np.zeros(shape, dtype=bool)
@@ -432,9 +431,9 @@ def compute_availabilitymatrix(cutout, shapes, excluder, nprocesses=None,
     CUDA card, or the CPU); ``"host"`` the exact numpy path shape by
     shape.  The default ``"auto"`` takes the device path on a cutout on a
     CUDA card and the host path on a CPU cutout.  Where the device path
-    cannot express the excluder (buffered raster layers; a CRS with no
-    closed form), ``"auto"`` takes the host path and logs so, while an
-    explicit ``"device"`` raises ``NotImplementedError``.  ``mesh`` (port
+    cannot express the excluder (a CRS with no closed form), ``"auto"``
+    takes the host path and logs so, while an explicit ``"device"`` raises
+    ``NotImplementedError``.  ``mesh`` (port
     only; the JAX package takes it on ``availability_matrix_device``)
     splits the shapes of the device path over a ``core.mesh.Mesh``; with
     a mesh, "auto" takes the device path.

@@ -2,41 +2,39 @@
 ``atlite_tpu/gis/kernels.py``), plain PyTorch on the cutout's device.
 
 Instead of atlite's per-shape loop of GDAL rasterize + warp (a
-multiprocessing Pool, its gis.py:661-756), the whole availability matrix
-is a few batched device operations on one shared fine lattice, streamed
-over blocks of fine rows:
+multiprocessing Pool, its gis.py:661-756), each shape is worked in its own
+window, the fine lattice that the host path gives it
+(``padded_transform_and_shape`` of its bounds), and the windows go to the
+device in batches of shapes:
 
-1. rasterize all shapes at once: even-odd crossings at pixel centres,
-2. AND with the exclusion mask of the same lattice (built on the host by
-   ``gis.exclusion.build_exclusion_mask``, uploaded as packed bits and
-   cached on the excluder),
+1. rasterize every shape of a batch at once: even-odd crossings at the
+   window's pixel centres, in float64, the host path's own comparison;
+2. exclusions of the window, per layer (``build_exclusion_mask``'s
+   semantics): a raster in the excluder's CRS at its resolution and
+   aligned to its lattice, of a narrow integer type with listed codes, is
+   sampled on the device by an integer offset and its codes selected by
+   a lookup table, cropped to the shape (outside it, the layer's nodata),
+   inverted, and dilated ``int(buffer / res) + 1`` times by the
+   4-connected cross; a buffered layer of any other kind is built on the
+   host for each window (cropped likewise); unbuffered host layers and
+   geometry layers are shape-independent, built once on the host over
+   the lattice of the touched cells and cached on the excluder;
 3. downsample onto the cutout grid: in the excluder's CRS, two
-   overlap-matrix products, ``Wy @ mask @ Wx.T``, with full float32
-   products (TF32 off); across CRSs, every pixel centre mapped to its
-   cell by the closed-form CRS math on the device and the available
-   pixels counted per cell (integer counts, exact).
+   overlap-matrix products, ``Wy @ mask @ Wx.T`` (full float32 products,
+   TF32 off); across CRSs, every fine pixel centre of the touched cells is
+   mapped to its cell once a call by the closed-form CRS math on the
+   device (float32, as the JAX package does on its chip), and each
+   window's available pixels are counted per cell from prefix sums along
+   its rows, taken at the ends of its runs of one cell (exact integers).
 
-Rasterization keeps the JAX package's comparisons exactly (the abscissa
-``x1 + (yb - y1) / denom * (x2 - x1)`` where an edge crosses a row, and a
-pixel inside when an odd number of them lie strictly right of its centre)
-but not its formulation: the crossings depend on the row alone, so each
-(shape, row) gets its E abscissae once, each abscissa the count of pixel
-centres left of it (``searchsorted`` on the ascending centres), and the
-parity of every pixel is a prefix sum along the row.  Across CRSs even
-that per-pixel mask is skipped: a row's cell ids change in runs, and each
-run's count follows from the sorted crossings and the row's prefix count
-of available pixels.  The work is O(S·rows·nx) in the excluder's CRS and
-O(S·rows·(E + runs)) across CRSs, where the JAX package's broadcast is
-O(S·E·rows·nx).
-
-The fine lattice is the res-snapped cover of the cutout extent, so results
-match the host path on the shared lattice (the snapping rule of
-``padded_transform_and_shape``).
+Every cell a window touches counts all of its pixels (atlite's
+``pad_extent``): the fine lattice covers the whole cells that the windows
+touch, so the result equals that of one lattice over the cutout's extent,
+while the work scales with the windows' area.
 """
 
 from __future__ import annotations
 
-import logging
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -46,14 +44,11 @@ from atlite_tpu_torch.aggregate import fp32_matmul
 from atlite_tpu_torch.gis import geometry as G
 from atlite_tpu_torch.profiling import span
 
-logger = logging.getLogger(__name__)
-
 # elements of the (shapes, rows, edges) crossing table of one row tile
 _TILE_ELEMS = 1 << 24
-# a cross-CRS block holds max_device_pixels / PIXEL_BYTES fine pixels: each
-# carries several per-pixel arrays (its cell id, run boundary, prefix count,
-# the CRS math's float32 temporaries) where a pixel-shape of the same-CRS
-# path carries one boolean
+# a block of the cell lattice holds max_device_pixels / PIXEL_BYTES fine
+# pixels: each carries the CRS math's float32 temporaries, where a
+# pixel-shape of a batch of windows carries a few bytes of masks
 PIXEL_BYTES = 8
 
 
@@ -87,9 +82,10 @@ def shapes_to_edges(geoms, max_edges=None):
 def _crossings(edges, edge_mask, yb):
     """(S, rows, E) abscissae where each edge crosses the line y = yb of
     each row, -inf where it does not (the JAX package's ``cond``, its
-    guarded division and its order of operations)."""
+    guarded division and its order of operations).  ``yb`` is (rows,), or
+    (S, rows) with each shape's own rows."""
     x1, y1, x2, y2 = (edges[..., i][:, None, :] for i in range(4))
-    yb = yb[None, :, None]
+    yb = yb[None, :, None] if yb.dim() == 1 else yb[:, :, None]
     cond = (y1 > yb) != (y2 > yb)
     # y2 == y1 edges never satisfy cond; guard the division anyway
     denom = torch.where(y2 == y1, 1.0, y2 - y1)
@@ -104,16 +100,21 @@ def _rasterize(edges, edge_mask, px, py, row_tile):
     j_k = #(px < x_k) centres, so the count at column c is E minus the
     number of k with j_k <= c: its parity is a prefix sum along the row of
     flips at the j_k (and at column 0 for an odd E), summed in uint8 (it
-    wraps, its parity holds) in place."""
+    wraps, its parity holds) in place.  ``px`` (nx,) and ``py`` (ny,) are
+    shared by the shapes, or (S, nx) and (S, ny), each shape's own."""
     S, E = edge_mask.shape
-    ny, nx = py.shape[0], px.shape[0]
+    ny, nx = py.shape[-1], px.shape[-1]
     tile = min(max(ny, 1), max(row_tile, _TILE_ELEMS // max(S * E, 1)))
     out = None if tile >= ny else torch.empty((S, ny, nx), dtype=torch.bool, device=px.device)
     for r0 in range(0, ny, tile):
-        yb = py[r0:r0 + tile]
-        j = torch.searchsorted(px, _crossings(edges, edge_mask, yb))
+        yb = py[..., r0:r0 + tile]
+        xint = _crossings(edges, edge_mask, yb)
+        if px.dim() == 1:
+            j = torch.searchsorted(px, xint)
+        else:
+            j = torch.searchsorted(px, xint.reshape(S, -1)).reshape(xint.shape)
         keep = (j < nx).to(torch.uint8)  # j == nx: right of every centre
-        flips = torch.zeros((S, yb.shape[0], nx), dtype=torch.uint8, device=px.device)
+        flips = torch.zeros((S, yb.shape[-1], nx), dtype=torch.uint8, device=px.device)
         if E % 2:
             flips[..., 0] = 1
         flips.scatter_add_(2, j.clamp_(max=nx - 1), keep)
@@ -148,105 +149,6 @@ def average_downsample(masks, Wy, Wx):
         num = Wy @ (m @ Wx.T)
     den = (Wy.sum(dim=1)[:, None] * Wx.sum(dim=1)[None, :])[None]
     return num / den
-
-
-def _block_masks(edges, emask, px, py_blk, excl_blk, row_tile=64):
-    """Rasterize all shapes on a fine-row block and apply the exclusion
-    mask: the (S, rows, nx) bool masks."""
-    return _rasterize(edges, emask, px, py_blk, row_tile) & ~excl_blk
-
-
-def _block_partial(edges, emask, px, py_blk, excl_blk, Wy_blk, Wx, row_tile=64):
-    """Downsampled partial sums of one fine-row block: rasterize all shapes
-    on the block, AND with the exclusion mask, contract onto the cutout
-    lattice.  Full float32 products: the Wy/Wx overlap weights are
-    fractional, and TF32 would break the host path's equivalence."""
-    fine = _block_masks(edges, emask, px, py_blk, excl_blk, row_tile).to(torch.float32)
-    with fp32_matmul():
-        return Wy_blk @ (fine @ Wx.T)
-
-
-def _cell_ids(px, py_blk, inv_affine, ri0, *, src_crs, dst_crs, NX, NY, bins):
-    """(rows, nx) int64 local cell id of every pixel centre of a block,
-    mapped by the closed-form CRS math on the device (float32), the
-    overflow bin ``bins - 1`` outside the block's window of cutout rows
-    from ``ri0``; and ``dropped``, the count of pixels inside the cutout
-    but outside the window (0-dim tensor)."""
-    from atlite_tpu_torch.gis.crs import transform_points_xp
-
-    lon, lat = torch.broadcast_tensors(*transform_points_xp(
-        px[None, :], py_blk[:, None], src_crs, dst_crs, torch))
-    a, b, c, d, e, f = inv_affine
-    ci = torch.floor(a * lon + b * lat + c).to(torch.int32)
-    ri = torch.floor(d * lon + e * lat + f).to(torch.int32)
-    in_cut = (ci >= 0) & (ci < NX) & (ri >= 0) & (ri < NY)
-    ok = in_cut & (ri >= ri0) & (ri < ri0 + (bins - 1) // NX)
-    # pixels inside the cutout but outside the sampled row window would be
-    # silently lost — count them so the caller can redo the block exactly
-    dropped = (in_cut & ~ok).sum()
-    return torch.where(ok, (ri - ri0) * NX + ci, bins - 1).to(torch.int64), dropped
-
-
-def _block_cells_crosscrs(edges, emask, px, py_blk, excl_blk, inv_affine, ri0, *,
-                          src_crs, dst_crs, NX, NY, bins):
-    """Cross-CRS fine-block contraction, on the device: for each shape,
-    the count of its available pixels (inside and not excluded) in each
-    cell of the block's window (``bins - 1`` cells: the few cutout rows
-    the block can touch x NX, +1 overflow bin for pixels outside; ``ri0``
-    is the window's first cutout row), and the count of all pixels a
-    cell.
-
-    No per-shape pixel mask is made.  Along a row the cell id changes in
-    runs (a cell is tens of pixels wide), and a shape's inside pixels are
-    the spans between its sorted crossings that an odd count lies right
-    of; with A, the row's prefix count of available pixels, the
-    available inside pixels left of any column are the whole spans'
-    sums plus the part of the span it falls in.  Each run's count is the
-    difference of that at its two ends: O(S·rows·(E + runs)) work where
-    the pixel mask is O(S·rows·nx), exact integers.  Finding the runs
-    waits for the device once a block.
-
-    Returns (num (S, bins), cnt (bins,), dropped) as int64 counts.
-    """
-    S, E = emask.shape
-    rows, nx = excl_blk.shape
-    dev = px.device
-    lid, dropped = _cell_ids(px, py_blk, inv_affine, ri0, src_crs=src_crs, dst_crs=dst_crs,
-                             NX=NX, NY=NY, bins=bins)
-    # run boundaries (row r, column t): each row's 0 and nx, and every
-    # column where the cell id changes; row-major order
-    change = torch.ones((rows, nx + 1), dtype=torch.bool, device=dev)
-    change[:, 1:nx] = lid[:, 1:] != lid[:, :-1]
-    r, t = torch.nonzero(change, as_tuple=True)
-    # A[r, c]: available pixels of row r left of column c
-    A = torch.zeros((rows, nx + 1), dtype=torch.int64, device=dev)
-    A[:, 1:] = torch.cumsum(~excl_blk, dim=1)
-    # each (shape, row)'s crossings as the count j of centres left of
-    # them, ascending: span k = [j_(k-1), j_k) (j_(-1) = 0, j_E = nx)
-    # holds k crossings at or left of its columns, so it is inside when
-    # E - k is odd
-    j = torch.searchsorted(px, _crossings(edges, emask, py_blk)).sort(dim=2).values
-    odd = (E - torch.arange(E + 1, device=dev)) & 1
-    Aj = torch.gather(A.expand(S, rows, nx + 1), 2, j)
-    A_left = torch.nn.functional.pad(Aj, (1, 0))  # A at each span's left end
-    W = torch.nn.functional.pad(torch.cumsum(odd[:E] * (Aj - A_left[..., :E]), dim=2), (1, 0))
-    # k at each boundary: the crossings of its row at or left of it, by
-    # one search of the row-major keys of all crossings
-    key = r * (nx + 1) + t
-    jkey = (j + (torch.arange(rows, device=dev) * (nx + 1))[None, :, None]).reshape(S, -1)
-    k = torch.searchsorted(jkey, key.expand(S, -1).contiguous(), right=True) - r * E
-    at = r * (E + 1) + k
-    inside_left = W.reshape(S, -1).gather(1, at) + odd[k] * (
-        A.reshape(-1)[key] - A_left.reshape(S, -1).gather(1, at))
-    # each run: the difference at its two ends; pairs across rows go to
-    # the overflow bin with nothing
-    same = r[1:] == r[:-1]
-    run_lid = torch.where(same, lid[r[:-1], t[:-1].clamp(max=nx - 1)], bins - 1)
-    num = torch.zeros((S, bins), dtype=torch.int64, device=dev)
-    num.index_add_(1, run_lid, torch.where(same, inside_left[:, 1:] - inside_left[:, :-1], 0))
-    cnt = torch.zeros(bins, dtype=torch.int64, device=dev)
-    cnt.index_add_(0, run_lid, torch.where(same, t[1:] - t[:-1], 0))
-    return num, cnt, dropped
 
 
 def _unpack_mask_device(packed, n):
@@ -341,15 +243,17 @@ class _ColdMask:
 
 
 class _BlockExcluder:
-    """Read-only per-block view of an ExclusionContainer for the pipelined
-    cold mask build: rasters carry allow_no_overlap=True (the overlap
-    contract was already validated against the FULL lattice window — a
-    raster merely missing one row block must not raise) while the layer
-    dict copies share the cached native code masks."""
+    """Read-only view of some layers of an ExclusionContainer (by default
+    all) for the host builds of a block or a window: rasters carry
+    allow_no_overlap=True (the overlap contract was already validated
+    against the whole lattice — a raster merely missing one block must not
+    raise) while the layer dict copies share the cached native code
+    masks."""
 
-    def __init__(self, exc):
-        self.rasters = [dict(d, allow_no_overlap=True) for d in exc.rasters]
-        self.geometries = exc.geometries
+    def __init__(self, exc, rasters=None, geometries=None):
+        rasters = exc.rasters if rasters is None else rasters
+        self.rasters = [dict(d, allow_no_overlap=True) for d in rasters]
+        self.geometries = exc.geometries if geometries is None else geometries
         self.res = exc.res
         self.crs = exc.crs
         self.all_open = True
@@ -359,24 +263,26 @@ def availability_matrix_device(cutout, shapes_geoms, excluder,
                                shapes_crs=4326, row_tile=64,
                                max_device_pixels=64_000_000, mesh=None):
     """Full availability matrix on the cutout's device (a CUDA card, or the
-    CPU); equivalent to the host path on the shared res-snapped lattice.
+    CPU), with the host path's semantics, buffered raster layers included
+    (cropped to each shape before their dilation, as atlite does).
     Returns (S, Y, X) numpy (ascending y, like compute_availabilitymatrix).
 
-    Streams over fine-raster row blocks (bounded by ``max_device_pixels``
-    of S×rows×nx boolean work at a time in the excluder's CRS, and by
-    ``max_device_pixels / PIXEL_BYTES`` pixels across CRSs, where no
-    per-shape mask is made), accumulating the downsampled partial sums on
-    the device and reading them back once, after every block was
-    dispatched — scales to country-size 100 m lattices.
+    The shapes' windows go to the device in batches of one count, as few
+    as keep each within ``max_device_pixels`` pixel-shapes at the largest
+    window's size (a single larger window goes alone); the counts stay on
+    the device and are read back once, after the last batch.  ``row_tile``
+    is the least number of rows the rasterization takes at a time.
 
-    ``mesh`` (a ``core.mesh.Mesh``): the shapes axis is padded with empty
-    shapes to a multiple of the mesh's devices (this process's) and split
-    over them, one group of shapes a device in mesh order (the multi-device
-    counterpart of atlite's Pool over shapes); each device runs the same
-    per-block path on its group, in turn; the groups are joined and the
-    padding trimmed.  The excluder caches the exclusion mask of one device
-    (the last), so positions on one card share it and a second card
+    ``mesh`` (a ``core.mesh.Mesh``): the shapes are split over the mesh's
+    devices (this process's), one group of shapes a device in mesh order
+    (the multi-device counterpart of atlite's Pool over shapes); each
+    device runs the same path on its group, in turn, and the groups are
+    joined.  The excluder caches its shape-independent host mask for one
+    device (the last), so positions on one card share it and a second card
     builds its own.
+
+    Counters: ``availability_matrix_device.shape_windows`` (windows worked)
+    and ``.window_pixels`` (their fine pixels).
     """
     from atlite_tpu_torch.core.mesh import Mesh
     from atlite_tpu_torch.gis.exclusion import _as_geometry_list
@@ -385,62 +291,424 @@ def availability_matrix_device(cutout, shapes_geoms, excluder,
         raise TypeError(f"mesh must be a core.mesh.Mesh, not {type(mesh).__name__}")
     if not excluder.all_open:
         excluder.open_files()
-    if any(d["buffer"] for d in excluder.rasters):
-        # atlite crops each raster to the QUERY shape before dilation
-        # (projected_mask crop=True, gis.py:197-230), so buffer sources
-        # outside the shape never fire — per-shape semantics the shared
-        # (shape-independent, cached) device mask cannot express.  The
-        # auto backend catches this and uses the host path.
-        raise NotImplementedError(
-            "buffered raster exclusion layers require per-shape crop "
-            "semantics (host path)")
-    # the query shapes, rasterized in batches on the device (float32, as
-    # the JAX package on its chip)
     geoms = _as_geometry_list(shapes_geoms, shapes_crs, excluder.crs)
-    edges, emask = shapes_to_edges(geoms)
     if mesh is None:
-        return _availability_on(cutout, cutout.device, edges, emask, excluder, row_tile,
+        return _availability_on(cutout, cutout.device, geoms, excluder, row_tile,
                                 max_device_pixels)
     devices = list(mesh.devices.ravel())
-    S = edges.shape[0]
-    pad = (-S) % len(devices)
-    # padded shapes have no edges: they rasterize to zeros
-    edges = np.pad(edges, ((0, pad), (0, 0), (0, 0)))
-    emask = np.pad(emask, ((0, pad), (0, 0)))
-    per = edges.shape[0] // len(devices)
-    parts = [_availability_on(cutout, dev, edges[k * per:(k + 1) * per],
-                              emask[k * per:(k + 1) * per], excluder, row_tile, max_device_pixels)
+    per = -(-len(geoms) // len(devices))
+    parts = [_availability_on(cutout, dev, geoms[k * per:(k + 1) * per], excluder, row_tile,
+                              max_device_pixels)
              for k, dev in enumerate(devices)]
-    return np.concatenate(parts)[:S]
+    return np.concatenate(parts)
 
 
-def _availability_on(cutout, device, edges, emask, excluder, row_tile, max_device_pixels):
-    """availability_matrix_device's path on one device for the shapes'
-    (S, E, 4) edges and (S, E) edge mask."""
+availability_matrix_device.shape_windows = 0
+availability_matrix_device.window_pixels = 0
+_counted = availability_matrix_device  # the counters' home, whatever wraps the name
+
+
+def _lattice_index(v, res):
+    """The integer index of a res-snapped coordinate (an exact multiple)."""
+    return int(round(v / res))
+
+
+def _device_layer(d, res, crs):
+    """Whether a raster layer runs on the device: in the excluder's CRS, at
+    its resolution, aligned to its lattice (an integer offset samples it,
+    the host's slice), of an integer or boolean type of at most 16 bits
+    (its codes a lookup table), and without a callable code filter."""
+    from atlite_tpu_torch.gis.crs import normalize_crs
+
+    r = d["raster"]
+    t = r.transform
+    data = np.asarray(r.data)
+    if callable(d["codes"]) or data.ndim != 2 or data.dtype.kind not in "uib" \
+            or data.dtype.itemsize > 2:
+        return False
+    if normalize_crs(r.crs) != normalize_crs(crs) or t.b != 0 or t.d != 0 \
+            or t.a != res or t.e != -res:
+        return False
+    return all(abs(v / res - round(v / res)) < 1e-9 for v in (t.c, t.f))
+
+
+class _DeviceRaster:
+    """One raster's rows and columns under the lattice, on the device
+    (uploaded once a call, whatever number of layers read it), and the
+    offsets that place a window's pixels in it."""
+
+    def __init__(self, r, res, KX0, KY0, ny, nx, device):
+        data = np.asarray(r.data)
+        H, W = data.shape
+        self.rx, self.ry = _lattice_index(r.transform.c, res), _lattice_index(r.transform.f, res)
+        # raster row of lattice row i: ry - KY0 + i; column of j: KX0 - rx + j
+        r0, r1 = max(self.ry - KY0, 0), min(self.ry - KY0 + ny, H)
+        c0, c1 = max(KX0 - self.rx, 0), min(KX0 - self.rx + nx, W)
+        self.r0, self.c0 = r0, c0
+        if r1 <= r0 or c1 <= c0:
+            self.tile = None
+            return
+        # whole rows are one contiguous read; a narrow window is copied out
+        part = data[r0:r1] if (c1 - c0) * 4 >= 3 * W else np.ascontiguousarray(data[r0:r1, c0:c1])
+        with span("copy", r0, r1):
+            tile = torch.from_numpy(part).to(device)
+        self.tile = tile if part.shape[1] == c1 - c0 else tile[:, c0:c1]
+
+    def sample(self, ky, kx, ny, nx):
+        """(values (S, ny, nx), inside the raster (S, ny, nx) bool) of the
+        windows with top-left lattice indices ``ky``/``kx`` (S,) tensors."""
+        dev = ky.device
+        S = ky.shape[0]
+        if self.tile is None:
+            return None, torch.zeros((S, ny, nx), dtype=torch.bool, device=dev)
+        h, w = self.tile.shape
+        rows = (self.ry - ky)[:, None] + torch.arange(ny, device=dev)[None, :] - self.r0
+        cols = (kx - self.rx)[:, None] + torch.arange(nx, device=dev)[None, :] - self.c0
+        rok, cok = (rows >= 0) & (rows < h), (cols >= 0) & (cols < w)
+        vals = self.tile[rows.clamp(0, h - 1)[:, :, None], cols.clamp(0, w - 1)[:, None, :]]
+        return vals, rok[:, :, None] & cok[:, None, :]
+
+
+def _code_table(d, device):
+    """(lookup table over the raster type's values, its lowest value, the
+    layer's nodata selected) of a device layer: the host's own code test
+    (``_code_select``) over every value of the type."""
+    from atlite_tpu_torch.gis.exclusion import _code_select, _nodata_selected
+
+    dtype = np.asarray(d["raster"].data).dtype
+    lo, hi = (0, 1) if dtype.kind == "b" else (np.iinfo(dtype).min, np.iinfo(dtype).max)
+    values = np.arange(lo, hi + 1).astype(dtype)
+    table = torch.as_tensor(_code_select(values, d["codes"]), device=device)
+    return table, int(lo), _nodata_selected(d)
+
+
+def _dilation_iterations(buffer, res):
+    """scipy's iterations of the 4-connected cross for a buffer (atlite
+    gis.py:317): ``int(buffer / res) + 1``."""
+    return int(buffer / res) + 1
+
+
+def _crop(sel, inside, nodata):
+    """atlite's crop (``projected_mask`` with ``crop=True``): outside the
+    shape a layer reads its nodata, whose selection is ``nodata``."""
+    return torch.where(inside, sel, nodata)
+
+
+def _dilate(m, iterations):
+    """4-connected binary dilation of each (ny, nx) mask of ``m`` (S, ny,
+    nx), ``iterations`` times, nothing beyond the edges (scipy's
+    ``binary_dilation`` with its default border)."""
+    for _ in range(iterations):
+        out = m.clone()
+        out[:, 1:] |= m[:, :-1]
+        out[:, :-1] |= m[:, 1:]
+        out[:, :, 1:] |= m[:, :, :-1]
+        out[:, :, :-1] |= m[:, :, 1:]
+        m = out
+    return m
+
+
+def _windows_cells(wins, res, cutout, crs, same_crs):
+    """Per window (its transform and shape) the inclusive (ri0, ri1, ci0,
+    ci1) range of cutout cells (top-down rows) its pixels can reach, from
+    its boundary sampled in the cutout's CRS (a hundredth of a cell to
+    spare for an edge that bulges between samples), or None outside the
+    cutout."""
+    from atlite_tpu_torch.gis.crs import transform_points
+
+    g = cutout.grid_desc
+    NY, NX = g.shape
+    inv = g.transform_r.inverse
+    n = 2 if same_crs else 33
+    s = np.linspace(0.0, 1.0, n)
+    xs, ys = [], []
+    for t, (ny, nx) in wins:
+        x0, x1 = t.c, t.c + t.a * nx
+        y1, y0 = t.f, t.f + t.e * ny
+        xs.append(np.concatenate([x0 + (x1 - x0) * s, x0 + (x1 - x0) * s, np.full(n, x0),
+                                  np.full(n, x1)]))
+        ys.append(np.concatenate([np.full(n, y0), np.full(n, y1), y0 + (y1 - y0) * s,
+                                  y0 + (y1 - y0) * s]))
+    xs, ys = np.stack(xs), np.stack(ys)
+    if not same_crs:
+        xs, ys = transform_points(xs.ravel(), ys.ravel(), crs, cutout.crs)
+        xs, ys = xs.reshape(len(wins), -1), ys.reshape(len(wins), -1)
+    ci = inv.a * xs + inv.b * ys + inv.c
+    ri = inv.d * xs + inv.e * ys + inv.f
+    pad = 0.0 if same_crs else 0.01
+    out = []
+    for k in range(len(wins)):
+        lo_r, hi_r = np.floor(np.nanmin(ri[k]) - pad), np.floor(np.nanmax(ri[k]) + pad)
+        lo_c, hi_c = np.floor(np.nanmin(ci[k]) - pad), np.floor(np.nanmax(ci[k]) + pad)
+        if not np.isfinite([lo_r, hi_r, lo_c, hi_c]).all() or hi_r < 0 or lo_r > NY - 1 \
+                or hi_c < 0 or lo_c > NX - 1:
+            out.append(None)
+            continue
+        out.append((int(max(lo_r, 0)), int(min(hi_r, NY - 1)), int(max(lo_c, 0)),
+                    int(min(hi_c, NX - 1))))
+    return out
+
+
+def _availability_on(cutout, device, geoms, excluder, row_tile, max_device_pixels):
+    """availability_matrix_device's path on one device for the shapes
+    ``geoms`` in the excluder's CRS."""
     from atlite_tpu_torch.gis.crs import normalize_crs as _ncrs, transform_points
     from atlite_tpu_torch.gis.raster import overlap_matrix, padded_transform_and_shape
 
-    crs = excluder.crs
-    res = excluder.res
-
-    # fine lattice covering the cutout extent, snapped to the res lattice.
-    # Sample the extent BOUNDARY densely, not just the corners: under a
-    # curved CRS (e.g. 4326 -> LAEA) an edge's extremum lies mid-edge, and
-    # corner-only bounds would clip fine pixels off boundary cells.
+    crs, res = excluder.crs, excluder.res
     g = cutout.grid_desc
-    x0, x1, y0, y1 = g.extent
-    exs = np.linspace(x0, x1, 65)
-    eys = np.linspace(y0, y1, 65)
-    edge_x = np.concatenate([exs, exs, np.full(65, x0), np.full(65, x1)])
-    edge_y = np.concatenate([np.full(65, y0), np.full(65, y1), eys, eys])
-    cx, cy = transform_points(edge_x, edge_y, cutout.crs, crs)
-    bounds = (cx.min() - res, cy.min() - res, cx.max() + res, cy.max() + res)
-    transform, (ny, nx) = padded_transform_and_shape(bounds, res)
-    px = transform.c + transform.a * (np.arange(nx) + 0.5)
-    py = transform.f + transform.e * (np.arange(ny) + 0.5)  # descending
+    NY, NX = g.shape
+    S = len(geoms)
+    out = np.zeros((S, NY, NX))
+    if S == 0:
+        return out
+    same_crs = _ncrs(crs) == _ncrs(cutout.crs)
 
-    # the exclusion mask is shape-independent: cached on the excluder,
-    # keyed by the device, the lattice and the layers
+    # each shape's window: the fine lattice the host path gives it
+    wins = [padded_transform_and_shape(geom.bounds, res) for geom in geoms]
+    cells = _windows_cells(wins, res, cutout, crs, same_crs)
+    work = [k for k in range(S) if cells[k] is not None]
+    if not work:
+        return out
+    ri0 = min(cells[k][0] for k in work)
+    ri1 = max(cells[k][1] for k in work)
+    ci0 = min(cells[k][2] for k in work)
+    ci1 = max(cells[k][3] for k in work)
+    nRy, nRx = ri1 - ri0 + 1, ci1 - ci0 + 1
+
+    # the lattice: the windows and the whole cells they touch, the cells'
+    # boundary sampled densely (under a curved CRS an edge's extremum lies
+    # mid-edge, and corner-only bounds would clip pixels off a cell)
+    tr = g.transform_r
+    x0, x1 = tr.c + tr.a * ci0, tr.c + tr.a * (ci1 + 1)
+    y1, y0 = tr.f + tr.e * ri0, tr.f + tr.e * (ri1 + 1)
+    exs, eys = np.linspace(x0, x1, 65), np.linspace(y0, y1, 65)
+    cx, cy = transform_points(np.concatenate([exs, exs, np.full(65, x0), np.full(65, x1)]),
+                              np.concatenate([np.full(65, y0), np.full(65, y1), eys, eys]),
+                              cutout.crs, crs)
+    wb = np.array([(t.c, t.f + t.e * n[0], t.c + t.a * n[1], t.f)
+                   for (t, n), c in zip(wins, cells) if c is not None])
+    bounds = (min(cx.min() - res, wb[:, 0].min()), min(cy.min() - res, wb[:, 1].min()),
+              max(cx.max() + res, wb[:, 2].max()), max(cy.max() + res, wb[:, 3].max()))
+    tL, (nyL, nxL) = padded_transform_and_shape(bounds, res)
+    layers = _prepare_layers(excluder, tL, nyL, nxL, device, row_tile, max_device_pixels)
+
+    # the cell of every pixel (across CRSs) or the overlap weights (one CRS)
+    if same_crs:
+        Wx = overlap_matrix(tL.c, tL.a, nxL, tr.c, tr.a, NX)[ci0:ci1 + 1].astype(np.float32)
+        Wy64 = overlap_matrix(tL.f, tL.e, nyL, tr.f, tr.e, NY)[ri0:ri1 + 1]
+        den = Wy64.sum(axis=1)[:, None] * Wx.sum(axis=1)[None, :]
+        Wx_d = torch.as_tensor(Wx, device=device)
+        Wy_d = torch.as_tensor(Wy64, dtype=torch.float32, device=device)
+        num = torch.zeros((S, nRy, nRx), dtype=torch.float32, device=device)
+    else:
+        ids_L, cnt = _cell_lattice(tL, nyL, nxL, cutout, crs, (ri0, ci0, nRy, nRx), device,
+                                   max_device_pixels)
+        num = torch.zeros((S, nRy * nRx + 1), dtype=torch.int64, device=device)
+
+    # batches of windows of one count, as few as keep each within
+    # max_device_pixels pixel-shapes at the largest window's size
+    largest = max(wins[k][1][0] * wins[k][1][1] for k in work)
+    n_batches = min(len(work), -(-len(work) * largest // max_device_pixels))
+    per = -(-len(work) // n_batches)
+    batches = [work[i:i + per] for i in range(0, len(work), per)]
+
+    for batch in batches:
+        with span("aggregate", batch[0], batch[-1] + 1):
+            inside, excl, ky, kx = _window_masks(
+                [geoms[k] for k in batch], [wins[k] for k in batch], batch, layers, res,
+                device, row_tile)
+            avail = inside & ~excl
+            del inside, excl
+            Sb, ny_b, nx_b = avail.shape
+            oy, ox = layers.KY0 - ky, kx - layers.KX0  # the windows' offsets in the lattice
+            rows = oy[:, None] + torch.arange(ny_b, device=device)[None, :]
+            cols = ox[:, None] + torch.arange(nx_b, device=device)[None, :]
+            rok, cok = rows < nyL, cols < nxL
+            rows, cols = rows.clamp(max=nyL - 1), cols.clamp(max=nxL - 1)
+            sel = torch.as_tensor(batch, device=device)
+            if same_crs:
+                wy = Wy_d[:, rows].permute(1, 0, 2) * rok[:, None, :]
+                wx = Wx_d[:, cols].permute(1, 0, 2) * cok[:, None, :]
+                with fp32_matmul():
+                    num[sel] = wy @ (avail.to(torch.float32) @ wx.transpose(1, 2))
+            else:
+                ids = ids_L[rows[:, :, None], cols[:, None, :]]
+                _count_runs(num, sel, avail, ids)
+        _counted.shape_windows += len(batch)
+        _counted.window_pixels += sum(wins[k][1][0] * wins[k][1][1] for k in batch)
+
+    if same_crs:
+        with np.errstate(invalid="ignore"):
+            share = num.cpu().numpy() / den[None]
+        share[:, den <= 0] = 0.0
+    else:
+        n = num.cpu().numpy()[:, :-1].astype(np.float64)
+        c = cnt.cpu().numpy()[:-1].astype(np.float64)
+        with np.errstate(invalid="ignore"):
+            share = n / c[None]
+        share[:, c <= 0] = 0.0
+        share = share.reshape(S, nRy, nRx)
+    out[:, ri0:ri1 + 1, ci0:ci1 + 1] = share
+    return np.ascontiguousarray(out[:, ::-1])  # flip to ascending y
+
+
+def _prepare_layers(excluder, tL, nyL, nxL, device, row_tile, max_device_pixels):
+    """The excluder's layers over the lattice ``tL`` (nyL, nxL): the
+    overlap check, the device rasters (each uploaded once), the buffered
+    host layers built window by window, and the shape-independent host
+    mask.  Returns a namespace for ``_window_masks``."""
+    from types import SimpleNamespace
+
+    from atlite_tpu_torch.gis.exclusion import _bounds_overlap
+
+    crs, res = excluder.crs, excluder.res
+    KX0, KY0 = _lattice_index(tL.c, res), _lattice_index(tL.f, res)
+    lattice_bounds = (tL.c, tL.f + tL.e * nyL, tL.c + tL.a * nxL, tL.f)
+    for d in excluder.rasters:
+        if not d["allow_no_overlap"] and not _bounds_overlap(d["raster"], lattice_bounds, crs):
+            raise ValueError("Raster and geometry do not overlap; pass "
+                             "allow_no_overlap=True to allow this.")
+    on_device = [d for d in excluder.rasters if _device_layer(d, res, crs)]
+    host = [d for d in excluder.rasters if not any(d is e for e in on_device)]
+    shared = [d for d in host if not d["buffer"]]
+    rasters, device_layers = {}, []
+    for d in on_device:
+        key = (id(np.asarray(d["raster"].data)), tuple(d["raster"].transform))
+        if key not in rasters:
+            rasters[key] = _DeviceRaster(d["raster"], res, KX0, KY0, nyL, nxL, device)
+        device_layers.append((rasters[key], *_code_table(d, device), d))
+    per_window = [d for d in host if d["buffer"]]
+    return SimpleNamespace(
+        device=device_layers, KX0=KX0, KY0=KY0,
+        per_window=_BlockExcluder(excluder, rasters=per_window, geometries=[])
+        if per_window else None,
+        shared=_shared_mask(excluder, shared, tL, nyL, nxL, device, row_tile, max_device_pixels)
+        if shared or excluder.geometries else None)
+
+
+def _window_masks(geoms, wins, index, layers, res, device, row_tile):
+    """(inside, excluded) (Sb, ny, nx) bool of a batch of windows (padded
+    to the batch's largest; padding is neither), and the windows' top-left
+    lattice indices (ky, kx) as (Sb,) int64 tensors.  ``index``: the
+    shapes' numbers, for the spans."""
+    from atlite_tpu_torch.gis.exclusion import build_exclusion_mask
+
+    Sb = len(geoms)
+    ny_b = max(n[0] for _, n in wins)
+    nx_b = max(n[1] for _, n in wins)
+    f64 = dict(dtype=torch.float64, device=device)
+    ky = torch.tensor([_lattice_index(t.f, res) for t, _ in wins], device=device)
+    kx = torch.tensor([_lattice_index(t.c, res) for t, _ in wins], device=device)
+    nys = torch.tensor([n[0] for _, n in wins], device=device)
+    nxs = torch.tensor([n[1] for _, n in wins], device=device)
+    valid = (torch.arange(ny_b, device=device)[None, :] < nys[:, None])[:, :, None] \
+        & (torch.arange(nx_b, device=device)[None, :] < nxs[:, None])[:, None, :]
+    # pixel centres from each window's own origin, as the host computes them
+    left = torch.tensor([t.c for t, _ in wins], **f64)[:, None]
+    top = torch.tensor([t.f for t, _ in wins], **f64)[:, None]
+    px = torch.arange(nx_b, **f64)[None, :] + 0.5
+    py = torch.arange(ny_b, **f64)[None, :] + 0.5
+    px = torch.where(px < nxs[:, None], res * px + left, torch.inf)
+    py = -res * py + top
+    edges, emask = shapes_to_edges(geoms)
+    inside = _rasterize(torch.as_tensor(edges, **f64), torch.as_tensor(emask, device=device),
+                        px, py, row_tile) & valid
+    excl = torch.zeros((Sb, ny_b, nx_b), dtype=torch.bool, device=device)
+    samples = {}
+    for raster, table, lo, nodata, d in layers.device:
+        if id(raster) not in samples:
+            samples[id(raster)] = raster.sample(ky, kx, ny_b, nx_b)
+        vals, in_raster = samples[id(raster)]
+        sel = torch.full_like(excl, nodata) if vals is None else \
+            torch.where(in_raster, table[vals.int() - lo if lo else vals.int()], nodata)
+        sel = _crop(sel, inside, nodata)
+        if d["invert"]:
+            sel = ~sel
+        sel &= valid
+        if d["buffer"]:
+            sel = _dilate(sel, _dilation_iterations(d["buffer"], res))
+        excl |= sel
+    if layers.per_window is not None:
+        for i, (geom, (t, n)) in enumerate(zip(geoms, wins)):
+            with span("mask", index[i], index[i] + 1):
+                m = build_exclusion_mask(layers.per_window, t, n, crop_geoms=[geom])
+            excl[i, :n[0], :n[1]] |= torch.as_tensor(m, device=device)
+    if layers.shared is not None:
+        nyL, nxL = layers.shared.shape
+        rows = (layers.KY0 - ky)[:, None] + torch.arange(ny_b, device=device)[None, :]
+        cols = (kx - layers.KX0)[:, None] + torch.arange(nx_b, device=device)[None, :]
+        excl |= layers.shared[rows.clamp(max=nyL - 1)[:, :, None],
+                              cols.clamp(max=nxL - 1)[:, None, :]]
+    return inside, excl & valid, ky, kx
+
+
+def _count_runs(num, sel, avail, ids):
+    """Add each window's available pixels per cell to ``num`` (S, bins)
+    rows ``sel``: along a row the cell id changes in runs, and a run's
+    count is the row's prefix count of available pixels at its end minus
+    that at the previous run's end.  Finding the run ends waits for the
+    device once."""
+    P = torch.cumsum(avail, dim=2, dtype=torch.int32)
+    end = torch.ones_like(avail)
+    end[:, :, :-1] = ids[:, :, 1:] != ids[:, :, :-1]
+    s, r, c = torch.nonzero(end, as_tuple=True)
+    at = P[s, r, c]
+    same = (s[1:] == s[:-1]) & (r[1:] == r[:-1])
+    prev = torch.zeros_like(at)
+    prev[1:] = torch.where(same, at[:-1], 0)
+    num.index_put_((sel[s], ids[s, r, c].to(torch.int64)), (at - prev).to(torch.int64),
+                   accumulate=True)
+
+
+def _cell_lattice(tL, nyL, nxL, cutout, crs, rect, device, max_device_pixels):
+    """(ids (nyL, nxL) int32, cnt (bins,) int64) of the lattice: each pixel
+    centre's cell in the rectangle ``rect`` = (ri0, ci0, nRy, nRx) of cutout
+    cells (top-down), by the closed-form CRS math on the device in float32,
+    ``nRy * nRx`` (the last bin) outside it; and the pixels of each bin."""
+    from atlite_tpu_torch.gis.crs import normalize_crs as _ncrs, transform_points_xp
+
+    ri0, ci0, nRy, nRx = rect
+    inv = cutout.grid_desc.transform_r.inverse
+    a, b, c, d, e, f = torch.tensor([inv.a, inv.b, inv.c, inv.d, inv.e, inv.f],
+                                    dtype=torch.float32, device=device)
+    px = torch.as_tensor(tL.c + tL.a * (np.arange(nxL) + 0.5), dtype=torch.float32,
+                         device=device)
+    py = torch.as_tensor(tL.f + tL.e * (np.arange(nyL) + 0.5), dtype=torch.float32,
+                         device=device)
+    src, dst = _ncrs(crs), _ncrs(cutout.crs)
+    bins = nRy * nRx
+    ids = torch.empty((nyL, nxL), dtype=torch.int32, device=device)
+    rows = max(1, max_device_pixels // (PIXEL_BYTES * nxL))
+    for r0 in range(0, nyL, rows):
+        r1 = min(r0 + rows, nyL)
+        with span("pack", r0, r1):
+            # whole (rows, nx) operands: a CPU's vector loop rounds
+            # transcendentals apart from its scalar tail, and broadcast
+            # operands give every row a tail, at columns that depend on
+            # where the lattice starts
+            shape = (r1 - r0, nxL)
+            lon, lat = transform_points_xp(px[None, :].expand(shape).contiguous(),
+                                           py[r0:r1, None].expand(shape).contiguous(),
+                                           src, dst, torch)
+            ci = torch.floor(a * lon + b * lat + c).to(torch.int32) - ci0
+            ri = torch.floor(d * lon + e * lat + f).to(torch.int32) - ri0
+            ok = (ci >= 0) & (ci < nRx) & (ri >= 0) & (ri < nRy)
+            ids[r0:r1] = torch.where(ok, ri * nRx + ci, bins)
+    cnt = torch.bincount(ids.view(-1), minlength=bins + 1)
+    return ids, cnt
+
+
+def _shared_mask(excluder, layers, tL, nyL, nxL, device, row_tile, max_device_pixels):
+    """The (nyL, nxL) bool exclusion mask of the shape-independent host
+    layers (unbuffered rasters the device does not sample, and geometry
+    layers) over the lattice: cached on the excluder, keyed by the device,
+    the lattice and the layers; cold, built per row block on one worker
+    thread, the next block queued while this one is uploaded (a callable
+    code filter need not be pointwise: it gets the whole lattice at once)."""
+    from atlite_tpu_torch.core.grid import Affine
+    from atlite_tpu_torch.gis.exclusion import _native_code_mask, build_exclusion_mask
+
     def _codes_key(codes):
         if codes is None:
             return None
@@ -448,192 +716,49 @@ def _availability_on(cutout, device, edges, emask, excluder, row_tile, max_devic
             return ("fn", id(codes))
         return tuple(np.atleast_1d(codes).tolist())
 
+    res = excluder.res
     cache_key = (
-        str(device), tuple(transform), ny, nx,
-        tuple((id(d["raster"]), _codes_key(d["codes"]), d["buffer"],
-               d["invert"], d["nodata"]) for d in excluder.rasters),
-        tuple((id(d["geometry"]), d["buffer"], d["invert"])
-              for d in excluder.geometries),
+        str(device), tuple(tL), nyL, nxL,
+        tuple((id(d["raster"]), _codes_key(d["codes"]), d["invert"], d["nodata"])
+              for d in layers),
+        tuple((id(d["geometry"]), d["buffer"], d["invert"]) for d in excluder.geometries),
     )
-    S = edges.shape[0]
-    edges_d = torch.as_tensor(edges, dtype=torch.float32, device=device)
-    emask_d = torch.as_tensor(emask, device=device)
-    px_d = torch.as_tensor(px, dtype=torch.float32, device=device)
-    py_d = torch.as_tensor(py, dtype=torch.float32, device=device)
-
-    # stream over fine-row blocks so device memory stays bounded whatever
-    # the fine raster's size: in the excluder's CRS a block's per-shape
-    # masks, S x rows x nx; across CRSs, where no per-shape mask is made,
-    # its pixels (max_device_pixels / PIXEL_BYTES of them) and its
-    # (S, rows, E) crossings
-    same_crs = _ncrs(crs) == _ncrs(cutout.crs)
-    if same_crs:
-        row_block = max_device_pixels // max(S * nx, 1)
-    else:
-        row_block = min(max_device_pixels // max(PIXEL_BYTES * nx, 1),
-                        _TILE_ELEMS // max(S * edges.shape[1], 1))
-    row_block = max(row_tile, min(ny, row_block))
-    row_block = -(-row_block // row_tile) * row_tile
-    blocks = [(b0, min(b0 + row_block, ny)) for b0 in range(0, ny, row_block)]
-
-    # A warm call (same key) reuses the cold build's per-block device
-    # parts, one copy of the mask.  A COLD call builds it PER ROW BLOCK on
-    # one background thread, ships each block as packed bits through
-    # pinned staging and unpacks it on the device, so the host mask build,
-    # the upload and the device work of consecutive blocks overlap.
     cached = getattr(excluder, "_fine_mask_cache", None)
     if cached is not None and cached[0] == cache_key:
-        get_excl = _excl_from_parts(cached[1])
-        finish_excl = lambda: None  # noqa: E731
-    elif any(callable(d["codes"]) for d in excluder.rasters):
-        # a CALLABLE code filter gets handed the projected array and need
-        # not be pointwise — per-block windows would change its input, so
-        # build the full lattice in one shot
-        from atlite_tpu_torch.gis.exclusion import build_exclusion_mask
+        return _excl_from_parts(cached[1])(0, nyL)
+    for d in layers:
+        if not callable(d["codes"]):
+            _native_code_mask(d)  # primed before the view copies the layers, so they share it
+    view = _BlockExcluder(excluder, rasters=layers)
+    if any(callable(d["codes"]) for d in layers):
+        with span("mask", 0, nyL):
+            m = build_exclusion_mask(view, tL, (nyL, nxL))
+        full = _unpack_mask_device(_Uploader(device)(np.packbits(m)), nyL * nxL)
+        full = full.reshape(nyL, nxL)
+        excluder._fine_mask_cache = (cache_key, {(0, nyL): full})
+        return full
+    # geometry-layer dilation reaches across block edges: build with a
+    # margin and crop
+    margin = max([_dilation_iterations(d["buffer"], res)
+                  for d in excluder.geometries if d["buffer"]] + [0])
+    row_block = max(row_tile, min(nyL, max_device_pixels // max(8 * nxL, 1)))
+    row_block = -(-row_block // row_tile) * row_tile
+    blocks = [(b0, min(b0 + row_block, nyL)) for b0 in range(0, nyL, row_block)]
 
-        exclusions = build_exclusion_mask(excluder, transform, (ny, nx))
-        packed = _Uploader(device)(np.packbits(exclusions))
-        excl_full = _unpack_mask_device(packed, ny * nx).reshape(ny, nx)
-        excluder._fine_mask_cache = (cache_key, {(0, ny): excl_full})
-        get_excl = lambda b0, b1: excl_full[b0:b1]  # noqa: E731
-        finish_excl = lambda: None  # noqa: E731
-    else:
-        from atlite_tpu_torch.core.grid import Affine
-        from atlite_tpu_torch.gis.exclusion import (
-            _bounds_overlap, _native_code_mask, build_exclusion_mask,
-        )
+    def _build(b0, b1):
+        # a profiler range on the worker thread: the host's build ms of
+        # each block, in a trace of the call
+        with span("mask", b0, b1):
+            m0, m1 = max(b0 - margin, 0), min(b1 + margin, nyL)
+            sub_t = Affine(tL.a, 0.0, tL.c, 0.0, tL.e, tL.f + tL.e * m0)
+            m = build_exclusion_mask(view, sub_t, (m1 - m0, nxL))
+            return np.packbits(m[b0 - m0:b0 - m0 + (b1 - b0)])
 
-        # the allow_no_overlap contract applies to the FULL window — a
-        # raster missing one block only must not raise
-        window_bounds = (transform.c, transform.f + transform.e * ny,
-                         transform.c + transform.a * nx, transform.f)
-        for d in excluder.rasters:
-            if not _bounds_overlap(d["raster"], window_bounds, crs) \
-                    and not d["allow_no_overlap"]:
-                raise ValueError(
-                    "Raster and geometry do not overlap; pass "
-                    "allow_no_overlap=True to allow this.")
-            _native_code_mask(d)  # prime the shared native-mask cache
-        blk_exc = _BlockExcluder(excluder)
-        # geometry-layer dilation reaches across block edges: build with
-        # a margin and crop (buffered rasters are refused above)
-        margin = max([int(d["buffer"] / res) + 1
-                      for d in excluder.geometries if d["buffer"]] + [0])
-
-        def _build(b0, b1):
-            # a profiler range on the worker thread: the host's build ms
-            # of each block, in a trace of the call
-            with span("mask", b0, b1):
-                m0, m1 = max(b0 - margin, 0), min(b1 + margin, ny)
-                sub_t = Affine(transform.a, 0.0, transform.c,
-                               0.0, transform.e, transform.f + transform.e * m0)
-                m = build_exclusion_mask(blk_exc, sub_t, (m1 - m0, nx))
-                return np.packbits(m[b0 - m0:b0 - m0 + (b1 - b0)])
-
-        cold = _ColdMask(blocks, _build, nx, device, excluder, cache_key)
-        get_excl, finish_excl = cold.get, cold.finish
-
-    tr = g.transform_r
-    NY, NX = g.shape
-
-    if same_crs:
-        # separable exact area-average: two overlap-matrix products
-        Wx_np = overlap_matrix(transform.c, transform.a, nx, tr.c, tr.a, NX).astype(np.float32)
-        Wy_full = overlap_matrix(transform.f, transform.e, ny, tr.f, tr.e, NY)
-        den = Wy_full.sum(axis=1)[:, None] * Wx_np.sum(axis=1)[None, :]
-        Wx = torch.as_tensor(Wx_np, device=device)
-        Wy_d = torch.as_tensor(Wy_full, dtype=torch.float32, device=device)
-
-        num = None
-        try:
-            for b0, b1 in blocks:
-                part = _block_partial(edges_d, emask_d, px_d, py_d[b0:b1], get_excl(b0, b1),
-                                      Wy_d[:, b0:b1], Wx, row_tile=row_tile)
-                num = part if num is None else num + part
-        finally:
-            finish_excl()
-        with np.errstate(invalid="ignore"):
-            avail = num.cpu().numpy() / den[None]
-        avail[:, den <= 0] = 0.0
-        return np.ascontiguousarray(avail[:, ::-1])  # flip to ascending y
-
-    # cross-CRS (e.g. 100 m EPSG:3035 excluder onto a 4326 cutout): the
-    # fine->cell mapping is not separable, so every block's pixels map to
-    # cells via closed-form CRS math and are counted per cell on the
-    # device (center-point scatter-mean, the same semantics as the host
-    # path's cross-CRS reproject_average).
-    ncell = NY * NX
-    inv = g.transform_r.inverse
-    inv_affine = torch.tensor([inv.a, inv.b, inv.c, inv.d, inv.e, inv.f],
-                              dtype=torch.float32, device=device)
-    src_key = _ncrs(crs)
-    dst_key = _ncrs(cutout.crs)
-
-    # per-block cutout-row windows from f64 boundary sampling (+margin);
-    # one window height for every block
-    def block_rows(b0, b1):
-        xs = np.concatenate([px[::max(1, nx // 64)], px[-1:]])
-        ys = np.concatenate([py[b0:b1:max(1, (b1 - b0) // 16)], py[b1 - 1:b1]])
-        gx, gy = np.meshgrid(xs, ys)
-        cxs, cys = transform_points(gx.ravel(), gy.ravel(), crs, cutout.crs)
-        ri = np.floor(inv.d * cxs + inv.e * cys + inv.f)
-        return int(ri.min()) - 2, int(ri.max()) + 3
-
-    windows = [block_rows(b0, b1) for b0, b1 in blocks]
-    yspan = max(hi - lo for lo, hi in windows)
-    bins = yspan * NX + 1
-
-    # dispatch every block first, accumulating on the device; THEN read
-    # the dropped counters back once — checking them eagerly would force
-    # one device sync per block
-    num_d = torch.zeros((S, ncell), dtype=torch.int64, device=device)
-    cnt_d = torch.zeros(ncell, dtype=torch.int64, device=device)
-    pending = []
-    excl_blocks = {}
+    cold = _ColdMask(blocks, _build, nxL, device, excluder, cache_key)
     try:
-        for (b0, b1), (lo, _) in zip(blocks, windows):
-            lo = max(min(lo, NY - yspan), 0) if NY > yspan else 0
-            excl_blocks[(b0, b1)] = get_excl(b0, b1)
-            num_b, cnt_b, dropped = _block_cells_crosscrs(
-                edges_d, emask_d, px_d, py_d[b0:b1], excl_blocks[(b0, b1)], inv_affine, lo,
-                src_crs=src_key, dst_crs=dst_key, NX=NX, NY=NY, bins=bins)
-            sl = slice(lo * NX, (lo + min(yspan, NY - lo)) * NX)
-            num_d[:, sl] += num_b[:, :sl.stop - sl.start]
-            cnt_d[sl] += cnt_b[:sl.stop - sl.start]
-            pending.append(((b0, b1), sl, num_b, cnt_b, dropped))
+        for b0, b1 in blocks:
+            cold.get(b0, b1)
     finally:
-        finish_excl()
+        cold.finish()
+    return _excl_from_parts(cold.parts)(0, nyL)
 
-    dropped_all = torch.stack([p[-1] for p in pending]).cpu().numpy() if pending else []
-    redo = []
-    for ((b0, b1), sl, num_b, cnt_b, _), n_dropped in zip(pending, dropped_all):
-        if n_dropped > 0:
-            # the sampled row window missed in-cutout pixels (extreme
-            # projection curvature) — take this block's counts out and
-            # redo it with the exact host scatter so nothing is lost
-            logger.warning(
-                "cross-CRS availability: row window missed %d pixels in "
-                "block %d:%d; falling back to host scatter for it",
-                int(n_dropped), b0, b1)
-            num_d[:, sl] -= num_b[:, :sl.stop - sl.start]
-            cnt_d[sl] -= cnt_b[:sl.stop - sl.start]
-            redo.append((b0, b1))
-    num = num_d.cpu().numpy().astype(np.float64)
-    cnt = cnt_d.cpu().numpy().astype(np.float64)
-    for b0, b1 in redo:
-        fine = _block_masks(edges_d, emask_d, px_d, py_d[b0:b1], excl_blocks[(b0, b1)],
-                            row_tile=row_tile).cpu().numpy()
-        gx, gy = np.meshgrid(px, py[b0:b1])
-        cxs, cys = transform_points(gx.ravel(), gy.ravel(), crs, cutout.crs)
-        ci = np.floor(inv.a * cxs + inv.b * cys + inv.c).astype(np.int64)
-        ri = np.floor(inv.d * cxs + inv.e * cys + inv.f).astype(np.int64)
-        okm = (ci >= 0) & (ci < NX) & (ri >= 0) & (ri < NY)
-        cid = ri[okm] * NX + ci[okm]
-        cnt += np.bincount(cid, minlength=ncell)
-        flat = fine.reshape(S, -1)[:, okm]
-        for s in range(S):
-            num[s] += np.bincount(cid, weights=flat[s], minlength=ncell)
-    with np.errstate(invalid="ignore"):
-        avail = num / cnt[None]
-    avail[:, cnt <= 0] = 0.0
-    return np.ascontiguousarray(avail.reshape(S, NY, NX)[:, ::-1])

@@ -98,17 +98,18 @@ Phases, in order; any failure exits non-zero:
      and other variables ``equals`` the cut's arrays; the store removed;
  15. availability (land eligibility) through ``cutout.availabilitymatrix``
      on the card (the device path of gis/kernels.py), each case cold (a
-     fresh excluder: host mask build per row block on a worker thread,
-     packed upload, unpacked on the card) and warm (the mask cached on the
-     card), with its wall s, fine-pixel-shape Mpix/s, device busy ms and
-     idle share (torch.profiler), the host's mask build ms a block, the
-     blocks redone on the host, peak device memory, the fine mask's bytes
-     and the bound (an edge test per shape, edge and pixel, or the mask's
-     and partial sums' bytes); the first 4 shapes against the host path
+     fresh excluder: the host layers' mask built per row block on a worker
+     thread, packed upload, unpacked on the card; an aligned raster
+     uploaded and sampled on the card) and warm (the host layers' mask
+     cached on the card, an aligned raster sampled again), with its wall s, fine-pixel-shape Mpix/s, device busy ms and
+     idle share (torch.profiler), the host's mask build ms a block, peak
+     device memory, the shared host mask's bytes and the bound (an edge
+     test per edge and window pixel, or the windows' and the matrix's
+     bytes); the first 4 shapes against the host path
      within 2e-2: (a) bench.py's 12 boxes over a 0.01 deg land-use raster
-     in EPSG:4326 (the separable downsample), (b) the same boxes over a
+     in EPSG:4326 (aligned: sampled on the card; the overlap products), (b) the same boxes over a
      100 m EPSG:3035 raster with a misaligned origin (a 32.5 Mpix
-     lattice, the cross-CRS counts; no block may be redone on the host), (c)
+     lattice, the cross-CRS counts), (c)
      bench_continental.py's stage 5 on the continental cut: 40 boxes of
      3 x 3 deg over a 100 m EPSG:3035 raster (~806 Mpix); then ``regrid``
      of a week of the continental wind field, held on the card, onto 0.5
@@ -199,7 +200,6 @@ import ctypes
 import dataclasses
 import gc
 import json
-import logging
 import mmap
 import os
 import re
@@ -1576,7 +1576,6 @@ N_AVAIL_SHAPES = 40
 AVAIL_HOST_SHAPES = 4
 REGRID_HOURS = 168          # a week of the continental wind field
 MASK_RANGE = re.compile(r"mask (\d+):(\d+)$")  # the cold build's ranges (gis/kernels.py)
-REDO_MESSAGE = "cross-CRS availability: row window missed"
 
 
 # the wrappers around the name of what a PyTorch kernel computes
@@ -1588,17 +1587,6 @@ KERNEL_WRAPPERS = re.compile(r"^void |at::native::|\(anonymous namespace\)::|at:
 def kernel_name(name):
     """A profiler kernel name without PyTorch's wrappers, 60 characters."""
     return KERNEL_WRAPPERS.sub("", name)[:60]
-
-
-class RedoCounter(logging.Handler):
-    """Counts the blocks the device path redid on the host."""
-
-    def __init__(self):
-        super().__init__(logging.WARNING)
-        self.n = 0
-
-    def emit(self, record):
-        self.n += record.getMessage().startswith(REDO_MESSAGE)
 
 
 def landuse_3035(lon, lat, res, seed=0):
@@ -1623,87 +1611,82 @@ def excluder_of(raster, crs, res):
 
 def availability_case(name, cutout, shapes, make_exc, card):
     """One availability workload on the card through
-    ``cutout.availabilitymatrix``: cold (a fresh excluder: host mask build
-    on the worker thread, packed upload) and warm (the mask cached on the
-    card) wall s, fine-pixel-shape Mpix/s, busy ms and idle share of a warm
-    and of a cold call (torch.profiler), the host's mask build ms a block
-    (its ranges in the cold trace), the blocks redone on the host, peak
-    device memory and the fine mask's bytes; the first shapes against the
-    host path within AVAIL_TOL.  Returns its entry of the availability
-    line."""
+    ``cutout.availabilitymatrix``: cold (a fresh excluder: the host layers'
+    mask built on the worker thread, packed upload) and warm (that mask
+    cached on the card; an aligned raster is sampled again) wall s,
+    window Mpix/s, busy ms and idle share of a warm and of a cold call
+    (torch.profiler), the host's mask build ms a block (its ranges in the
+    cold trace), peak device memory and the host layers' mask's bytes;
+    the first shapes against the host path within AVAIL_TOL.  Returns its
+    entry of the availability line."""
     S, (NY, NX) = len(shapes), cutout.shape
-    counter = RedoCounter()
-    logging.getLogger(avail_kernels.__name__).addHandler(counter)
-    try:
-        exc = make_exc()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()  # earlier phases' tensors
+    counted = avail_kernels.availability_matrix_device
+    exc = make_exc()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors
+    pix0 = counted.window_pixels
+    t0 = time.perf_counter()
+    out = cutout.availabilitymatrix(shapes, exc)
+    cold_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    P = counted.window_pixels - pix0  # the fine pixels of the shapes' windows
+    dev = out.values
+    if dev.shape != (S, NY, NX) or not np.isfinite(dev).all() or dev.min() < 0 \
+            or dev.max() > 1 + 1e-6:
+        raise RuntimeError(f"{name}: availability {dev.shape}, finite "
+                           f"{np.isfinite(dev).all()}, range {dev.min()}..{dev.max()}")
+    # the shape-independent host mask, where the excluder has host layers
+    parts = getattr(exc, "_fine_mask_cache", (None, {}))[1]
+    if any(p.device.type != "cuda" for p in parts.values()):
+        raise RuntimeError(f"{name}: the fine mask is not on the card")
+    mask_mb = sum(p.numel() * p.element_size() for p in parts.values()) / 1e6
+    warm = []
+    for _ in range(2):
         t0 = time.perf_counter()
-        out = cutout.availabilitymatrix(shapes, exc)
-        cold_s = time.perf_counter() - t0
-        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
-        dev = out.values
-        if dev.shape != (S, NY, NX) or not np.isfinite(dev).all() or dev.min() < 0 \
-                or dev.max() > 1 + 1e-6:
-            raise RuntimeError(f"{name}: availability {dev.shape}, finite "
-                               f"{np.isfinite(dev).all()}, range {dev.min()}..{dev.max()}")
-        parts = exc._fine_mask_cache[1]
-        if next(iter(parts.values())).device.type != "cuda":
-            raise RuntimeError(f"{name}: the fine mask is not on the card")
-        P = sum(p.numel() for p in parts.values())
-        mask_mb = sum(p.numel() * p.element_size() for p in parts.values()) / 1e6
-        nx = next(iter(parts.values())).shape[1]
-        warm = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            again = cutout.availabilitymatrix(shapes, exc).values
-            warm.append(time.perf_counter() - t0)
-            if not np.array_equal(again, dev):
-                raise RuntimeError(f"{name}: a warm call gave other values than the cold one")
-        warm_s = min(warm)
-        torch.cuda.synchronize()
-        with profiled() as prof:
-            t0 = time.perf_counter()
-            cutout.availabilitymatrix(shapes, exc)
-            torch.cuda.synchronize()
-            warm_wall = time.perf_counter() - t0
-        warm_idle = device_idle(prof, warm_wall * 1e3)
-        by_kernel = sorted(((kernel_name(e.key), e.device_time_total / 1e3)
-                            for e in prof.key_averages()
-                            if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
-                           key=lambda kv: -kv[1])
-        torch.cuda.synchronize()
-        fresh = make_exc()
-        with profiled() as prof:
-            t0 = time.perf_counter()
-            cutout.availabilitymatrix(shapes, fresh)
-            torch.cuda.synchronize()
-            cold_wall = time.perf_counter() - t0
-        cold_idle = device_idle(prof, cold_wall * 1e3)
-        build_ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                    if MASK_RANGE.match(e.name)]
-        del fresh, prof
-        exc_h = make_exc()
+        again = cutout.availabilitymatrix(shapes, exc).values
+        warm.append(time.perf_counter() - t0)
+        if not np.array_equal(again, dev):
+            raise RuntimeError(f"{name}: a warm call gave other values than the cold one")
+    warm_s = min(warm)
+    torch.cuda.synchronize()
+    with profiled() as prof:
         t0 = time.perf_counter()
-        host = cutout.availabilitymatrix(shapes[:AVAIL_HOST_SHAPES], exc_h, backend="host").values
-        host_s = time.perf_counter() - t0
-        diff = float(np.abs(dev[:AVAIL_HOST_SHAPES] - host).max())
-        if not diff < AVAIL_TOL:
-            raise RuntimeError(f"{name}: the card's availability is {diff} from the host path's")
-    finally:
-        logging.getLogger(avail_kernels.__name__).removeHandler(counter)
-    redone = counter.n
+        cutout.availabilitymatrix(shapes, exc)
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t0
+    warm_idle = device_idle(prof, warm_wall * 1e3)
+    by_kernel = sorted(((kernel_name(e.key), e.device_time_total / 1e3)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
+                       key=lambda kv: -kv[1])
+    torch.cuda.synchronize()
+    fresh = make_exc()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        cutout.availabilitymatrix(shapes, fresh)
+        torch.cuda.synchronize()
+        cold_wall = time.perf_counter() - t0
+    cold_idle = device_idle(prof, cold_wall * 1e3)
+    build_ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if MASK_RANGE.match(e.name)]
+    del fresh, prof
+    exc_h = make_exc()
+    t0 = time.perf_counter()
+    host = cutout.availabilitymatrix(shapes[:AVAIL_HOST_SHAPES], exc_h, backend="host").values
+    host_s = time.perf_counter() - t0
+    diff = float(np.abs(dev[:AVAIL_HOST_SHAPES] - host).max())
+    if not diff < AVAIL_TOL:
+        raise RuntimeError(f"{name}: the card's availability is {diff} from the host path's")
     E = avail_kernels.shapes_to_edges(shapes)[0].shape[1]
-    n_ops, n_bytes = S * E * P, P + 4 * S * NY * NX
+    n_ops, n_bytes = E * P, P + 4 * S * NY * NX
     ops_ms, bytes_ms = n_ops / FP32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    log(f"  {name}: {S} shapes of {E} edges on a {P // nx} x {nx} fine lattice ({P / 1e6:.1f} "
-        f"Mpix) onto {NY} x {NX} cells, {len(parts)} row blocks; fine mask {mask_mb:.1f} MB on "
-        f"the card, peak device memory of the cold call {peak_gb:.2f} GB above what earlier "
-        f"phases hold")
+    log(f"  {name}: {S} shapes of {E} edges, their windows {P / 1e6:.1f} Mpix, onto {NY} x "
+        f"{NX} cells; shared host mask {len(parts)} row blocks, {mask_mb:.1f} MB on the card; "
+        f"peak device memory of the cold call {peak_gb:.2f} GB above what earlier phases hold")
     log(f"    cold {cold_s:.3f} s, warm {warm_s:.3f} s (runs {', '.join(f'{w:.3f}' for w in warm)}) "
-        f"= {S * P / warm_s / 1e6:.1f} Mpix-shapes/s; warm under the profiler {warm_wall:.3f} s, "
+        f"= {P / warm_s / 1e6:.1f} Mpix-shapes/s; warm under the profiler {warm_wall:.3f} s, "
         f"{trace_note(warm_idle)}; cold under the profiler {cold_wall:.3f} s, "
         f"{trace_note(cold_idle)}")
     if by_kernel:
@@ -1719,16 +1702,16 @@ def availability_case(name, cutout, shapes, make_exc, card):
         f"{ops_ms:.4f} ms, {n_bytes / 1e6:.1f} MB of mask and partial sums at 3.35 TB/s "
         f"{bytes_ms:.4f} ms; warm busy "
         + ("not measured" if busy is None else f"{busy:.2f} ms = {bound_ms / busy:.1%} of it"))
-    log(f"    {redone} blocks redone on the host; first {AVAIL_HOST_SHAPES} shapes against the "
-        f"host path ({host_s:.2f} s): max abs diff {diff:.3e} (tolerance {AVAIL_TOL}) on {card}")
+    log(f"    first {AVAIL_HOST_SHAPES} shapes against the host path ({host_s:.2f} s): max abs "
+        f"diff {diff:.3e} (tolerance {AVAIL_TOL}) on {card}")
     return {"name": name, "shapes": S, "edges": E, "fine_mpix": P / 1e6, "cells": NY * NX,
             "blocks": len(parts), "cold_s": cold_s, "warm_s": warm_s,
-            "mpix_shapes_per_s": S * P / warm_s / 1e6,
+            "mpix_shapes_per_s": P / warm_s / 1e6,
             "warm_busy_ms": busy, "warm_idle": None if warm_idle is None else warm_idle[1],
             "cold_busy_ms": None if cold_idle is None else cold_idle[0],
             "cold_idle": None if cold_idle is None else cold_idle[1],
             "mask_build_ms_per_block": float(np.mean(build_ms)) if build_ms else None,
-            "redone_blocks": redone, "peak_device_gb": peak_gb, "fine_mask_mb": mask_mb,
+            "peak_device_gb": peak_gb, "fine_mask_mb": mask_mb,
             "warm_kernels_ms": dict(by_kernel[:8]),
             "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "host_s": host_s, "max_abs_diff_vs_host": diff, "card": card}
@@ -1799,8 +1782,6 @@ def availability_phase(cut, card, res=AVAIL_RES_M):
     cont_shapes = [box(x, y, x + 3.0, y + 3.0) for y in sy for x in sx][:N_AVAIL_SHAPES]
     entries.append(availability_case(f"(c) continental EPSG:3035 {res:g} m", cut, cont_shapes,
                                      excluder_of(raster, 3035, res), card))
-    if entries[1]["redone_blocks"]:
-        raise RuntimeError(f"(b): {entries[1]['redone_blocks']} blocks redone on the host")
     del raster
     gc.collect()
     entries += regrid_check(cut, card)

@@ -288,6 +288,26 @@ def test_no_banned_imports(path):
     assert not set(imported_roots(path)) & set(BANNED)
 
 
+def test_chip_smoke_names_resolve():
+    """Every global name a function of chip_smoke.py reads is defined in
+    the module or a builtin: the card-only branches, which the CPU never
+    runs, fail on no undefined helper."""
+    import builtins
+    import symtable
+
+    table = symtable.symtable((ROOT / "chip_smoke.py").read_text(encoding="utf-8"),
+                              "chip_smoke.py", "exec")
+    defined = {s.get_name() for s in table.get_symbols() if s.is_assigned() or s.is_imported()
+               or s.is_namespace()} | set(dir(builtins))
+    missing, todo = set(), list(table.get_children())
+    while todo:
+        scope = todo.pop()
+        todo += scope.get_children()
+        missing |= {(scope.get_name(), s.get_name()) for s in scope.get_symbols()
+                    if s.is_global() and s.is_referenced() and s.get_name() not in defined}
+    assert not missing, sorted(missing)
+
+
 def test_chip_smoke_imports_only_the_port():
     allowed = {"__future__", "ctypes", "dataclasses", "gc", "json", "logging", "mmap", "os",
                "pathlib", "re", "shutil", "subprocess", "sys", "tempfile", "threading", "time",

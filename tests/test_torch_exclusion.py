@@ -6,8 +6,9 @@ nodata, ``allow_no_overlap``, geometry layers with their CRS),
 ``compute_availabilitymatrix(backend="host")`` with the shapes' index, on
 the cases of tests/test_gis.py (exclusions and availability matrices) and
 the checks those cases make.  The ``"auto"`` backend of a CPU cutout is
-the host path, and a buffered raster layer refused by the device path
-falls back to it under ``"auto"`` and raises under ``"device"``.
+the host path; a buffered raster layer takes the device path under
+``"device"`` and, on a card, under ``"auto"``, cropped as the host path
+crops it.
 
 Both packages run the same float64 numpy here: masks, transforms and
 availability matrices must be equal bit for bit.
@@ -341,12 +342,14 @@ def test_availabilitymatrix_index_forms(cutouts):
         texcl.compute_availabilitymatrix(tc, TWO, build("port", spec), backend="tpu")
 
 
-def test_buffered_raster_crop_semantics_and_routing(caplog):
+def test_buffered_raster_crop_semantics_and_routing(caplog, monkeypatch):
     """atlite crops each raster to the query shape before dilation: a code
     pixel outside the shape does not buffer into it.  The device path
-    refuses buffered raster layers; "auto" on a cutout that would take
-    the device path logs and takes the host path, an explicit "device"
-    raises."""
+    crops so too: on a CPU cutout under "device", and under "auto" on a
+    cutout whose device reads as a card, it runs (no refusal, no host
+    fallback) and equals the host path."""
+    from atlite_tpu_torch.gis import kernels
+
     res = 0.01
     shape_geom = [TG.box(0.0, 0.0, 1.0, 1.0)]
     arr = np.zeros((120, 140), np.int32)
@@ -363,19 +366,31 @@ def test_buffered_raster_crop_semantics_and_routing(caplog):
     assert masked.sum() == base.sum()
     cut = atlite_tpu_torch.Cutout(device="cpu", module="synthetic", x=slice(0.0, 1.0),
                                   y=slice(0.0, 1.0), time="2013-01-01")
-    with pytest.raises(NotImplementedError, match="buffered"):
-        cut.availabilitymatrix(shape_geom, exc(), backend="device")
     host = cut.availabilitymatrix(shape_geom, exc(), backend="host").values
+    device = cut.availabilitymatrix(shape_geom, exc(), backend="device").values
+    # one CRS: the device's two float32 overlap products against float64
+    np.testing.assert_allclose(device, host, rtol=0, atol=1e-6)
     # a cutout whose device reads as a card takes the device path under
-    # "auto": refused there, it lands on the host path with a log line
+    # "auto" (run here on the CPU): no refusal, no host fallback
+    real, seen = kernels.availability_matrix_device, []
+
+    def on_the_cpu(cutout, *args, **kwargs):
+        seen.append(cutout.device.type)
+        cutout.device = torch.device("cpu")
+        try:
+            return real(cutout, *args, **kwargs)
+        finally:
+            cutout.device = torch.device("cuda")
+
+    monkeypatch.setattr(kernels, "availability_matrix_device", on_the_cpu)
     cut.device = torch.device("cuda")
     try:
         with caplog.at_level(logging.INFO, logger="atlite_tpu_torch.gis.exclusion"):
             auto = cut.availabilitymatrix(shape_geom, exc()).values
     finally:
         cut.device = torch.device("cpu")
-    assert "host path" in caplog.text and "buffered" in caplog.text
-    np.testing.assert_array_equal(auto, host)
+    assert seen == ["cuda"] and "host path" not in caplog.text
+    np.testing.assert_array_equal(auto, device)
     assert np.isfinite(host).all()
 
 

@@ -84,7 +84,8 @@ def test_cold_mask_blocks_out_of_order_cache_under_their_bounds(monkeypatch):
     c = atlite_tpu_torch.Cutout(device="cpu", module="synthetic", x=slice(-4, 1.5),
                                 y=slice(56, 62), time="2013-01-01").prepare(features=["height"])
     rng = np.random.default_rng(0)
-    landuse = Raster(rng.integers(1, 6, (640, 580)).astype(np.uint8),
+    # int32: a layer the device does not sample, so the host builds the mask
+    landuse = Raster(rng.integers(1, 6, (640, 580)).astype(np.int32),
                      Affine(0.01, 0, -4.2, 0, -0.01, 62.2), 4326, 255)
     regions = [box(-4, 56, -1.25, 62), box(-1.25, 56, 1.5, 62)]
 
@@ -122,6 +123,28 @@ def test_cold_mask_blocks_out_of_order_cache_under_their_bounds(monkeypatch):
     warm = avail(exc)
     np.testing.assert_array_equal(cold, want)
     np.testing.assert_array_equal(warm, want)
+
+
+def test_cold_mask_selects_the_native_codes_once(monkeypatch):
+    """A cold call over several row blocks selects a host layer's codes on
+    its native raster once: every block's build reads the same native
+    mask."""
+    from atlite_tpu_torch.gis import exclusion
+
+    c = atlite_tpu_torch.Cutout(device="cpu", module="synthetic", x=slice(-4, 1.5),
+                                y=slice(56, 62), time="2013-01-01")
+    data = np.random.default_rng(1).integers(1, 6, (640, 580)).astype(np.int32)
+    exc = ExclusionContainer(crs=4326, res=0.01)
+    exc.add_raster(Raster(data, Affine(0.01, 0, -4.2, 0, -0.01, 62.2), 4326, 255), codes=[4, 5])
+    real, native = exclusion._code_select, []
+
+    def counted(values, codes):
+        native.append(np.shape(values) == data.shape)
+        return real(values, codes)
+
+    monkeypatch.setattr(exclusion, "_code_select", counted)
+    kernels.availability_matrix_device(c, [box(-4, 56, 1.5, 62)], exc, max_device_pixels=200_000)
+    assert len(exc._fine_mask_cache[1]) > 2 and sum(native) == 1
 
 
 def test_streamer_counts_no_copy_on_the_cpu():
