@@ -149,9 +149,9 @@ def _library():
                                           + [ctypes.POINTER(ctypes.c_int)] * 3)
     lib.wind_pv_bus_launch.restype = ctypes.c_int
     lib.wind_pv_bus_launch.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 3
+        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-        + [ctypes.c_void_p] * 5)
+        + [ctypes.c_void_p] * 6)
     lib.wind_pv_bus_error_string.restype = ctypes.c_char_p
     lib.wind_pv_bus_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -220,8 +220,13 @@ def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=
     (wind_bus, pv_bus), each (T, B).  CUDA tensors go through the kernel
     (``launches`` counts the launches, ``bus_passes`` its passes over the
     buses: ceil(B / the bus tile of ``occupancy``) a launch), CPU tensors
-    through the plain version.  On the card the argument building runs in
-    a ``pack 0:T`` span, the launch in ``convert 0:T``.
+    through the plain version.  ``staged16`` counts the launches whose
+    fields and matrix were all staged by 16-byte copies: every launch but
+    those whose nine fields' bases differ in their 16-byte phase (a matrix
+    whose rows are not 16-byte aligned, as where C % 4 != 0, is copied
+    with a padded pitch by the launch's prologue).  On the card the
+    argument building runs in a ``pack 0:T`` span, the launch in
+    ``convert 0:T``.
     """
     T, C, B, device = _check(fields, lat_cell, matrix, V, POWn)
     if device.type == "cpu":
@@ -240,23 +245,31 @@ def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=
         prm["r_irradiance"] = float(np.float32(1.0) / np.float32(prm["r_irradiance"]))
         n_blocks, split, n_items, n_passes = _grid(device.index, T, C, B)
         panel_cells = torch.empty((C, 4), dtype=torch.float32, device=device)
+        # the matrix with 16-byte rows, filled by the kernel's prologue
+        mat_pad = torch.empty((B, -(-C // 4) * 4), dtype=torch.float32, device=device) \
+            if C % 4 or matrix.data_ptr() % 16 else None
         part = torch.empty((2, n_items, UNIT_ROWS, B), dtype=torch.float32, device=device)
         out = torch.empty((2, T, B), dtype=torch.float32, device=device)
         field_ptrs = (ctypes.c_void_p * len(FIELD_ORDER))(
             *[fields[k].data_ptr() for k in FIELD_ORDER])
         params = (ctypes.c_float * 12)(float(hub_height), *prm.values())
         stream = torch.cuda.current_stream(device).cuda_stream
+        staged16 = ctypes.c_int(0)
         args = (device.index, field_ptrs, lat_cell.data_ptr(), matrix.data_ptr(),
+                None if mat_pad is None else mat_pad.data_ptr(),
                 table.data_ptr(), table.shape[0], V.shape[0], T, C, B,
                 split["block_unit"].data_ptr(), split["block_item"].data_ptr(),
                 split["tile_item"].data_ptr(), n_blocks, n_items, params,
-                panel_cells.data_ptr(), part.data_ptr(), out.data_ptr(), stream)
+                panel_cells.data_ptr(), part.data_ptr(), out.data_ptr(), stream,
+                ctypes.byref(staged16))
     with span("convert", 0, T):
         _raise_on(lib.wind_pv_bus_launch(*args), "launch")
     wind_pv_bus_megakernel.launches += 1
     wind_pv_bus_megakernel.bus_passes += n_passes
+    wind_pv_bus_megakernel.staged16 += staged16.value
     return out[0], out[1]
 
 
 wind_pv_bus_megakernel.launches = 0
 wind_pv_bus_megakernel.bus_passes = 0
+wind_pv_bus_megakernel.staged16 = 0

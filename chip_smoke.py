@@ -185,7 +185,12 @@ Phases, in order; any failure exits non-zero:
      plain version within 1e-5 * max, its ms beside its byte bound; the
      peak host memory of the preparation; (c) every examples_torch/*.py
      in a subprocess on the card (rc 0 and output; one that stops only
-     for want of matplotlib is reported as not run).
+     for want of matplotlib is reported as not run); (d) the fused kernel
+     alone (its device time, torch.profiler) and the whole call (CUDA
+     events) at the bench fields (T = 2184, C = 12,288, every row 16-byte
+     aligned) and at their first 12,255 cells (rows at every 16-byte
+     phase, as PyPSA-Eur's 23,711), B = 20 and 34, each against its plain
+     version, with the launches counted by ``staged16``.
 The step of phase 4 is also held against the JAX package's step on the
 same inputs, stored by tools/make_jax_step_reference.py (within 1e-4 *
 max; the diff is printed on the kernels line).
@@ -297,18 +302,21 @@ def log(msg):
 
 
 # one entry function of ptxas -v: its name, then its spills and registers
-PTXAS_ENTRY = re.compile(r"Compiling entry function '_Z\w*?\d+([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?")
+PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '_Z\w*?\d+([a-z][a-z_]*_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
 def ptxas_summary(text):
-    """{kernel name (with its template argument): (registers, spill store
-    bytes, spill load bytes)} from a build log of nvcc -Xptxas -v."""
+    """{kernel name (with its template arguments, as "<9, true>"):
+    (registers, spill store bytes, spill load bytes)} from a build log of
+    nvcc -Xptxas -v."""
     out, name, spill = {}, None, (0, 0)
     for line in text.splitlines():
         if m := PTXAS_ENTRY.search(line):
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            args = [a for a in (m.group(2), {"1": "true", "0": "false"}.get(m.group(3))) if a]
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif (m := PTXAS_SPILL.search(line)) and name:
             spill = (int(m.group(1)), int(m.group(2)))
         elif (m := PTXAS_REGS.search(line)) and name:
@@ -2670,6 +2678,10 @@ YEAR_CHUNK = 730
 YEAR_REGIONS = (4, 5)
 RUNOFF_TOTAL = 5000.0  # a year's runoff a region, for normalize_using_yearly
 EXAMPLES_DIR = Path(__file__).resolve().parent / "examples_torch"
+# (d) cells of the bench fields: all 96 x 128, and the first 12,255 (no
+# multiple of 4); bus counts of both bus tiles
+ROW_PHASE_CELLS = (12288, 12255)
+ROW_PHASE_BUSES = (20, 34)
 
 
 def oedb_rows():
@@ -2987,7 +2999,44 @@ def year_phase(card):
             "peak_host_gb": rss.peak / 1e9, "calls": entries,
             "step": {"ms": ms, "bound_ms": bound_ms, "launches": launches,
                      "max_abs_err": err},
-            "examples": examples, "card": card}
+            "examples": examples, "row_phases": row_phase_timing(card), "card": card}
+
+
+def row_phase_timing(card, reps=20):
+    """Phase 18 (d): the fused kernel at the bench fields' C = 12,288,
+    whose rows all start 16-byte aligned, and at their first 12,255 cells,
+    whose rows start at every 16-byte phase; B = 20 and 34.  Each shape
+    against its plain version, then the kernel's own device time
+    (torch.profiler, ``reps`` calls) and the call's (CUDA events).
+    Returns its JSON entries."""
+    T, Y, X, _ = BENCH_SHAPE
+    fields, _, _, lat, V, POWn, matrix = build_inputs(T, Y, X, max(ROW_PHASE_BUSES))
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device="cuda")
+    V, POWn = put(V), put(POWn)
+    log(f"  (d) the fused kernel at T={T} by row phase, on {card}:")
+    out = []
+    for C in ROW_PHASE_CELLS:
+        flat = {k: put(fields[k].reshape(T, -1)[:, :C]) for k in FIELD_ORDER}
+        lat_cell = put(np.repeat(lat, X)[:C])
+        for B in ROW_PHASE_BUSES:
+            m = put(matrix[:B, :C])
+            call = lambda: wind_pv_bus_megakernel(flat, lat_cell, m, V, POWn, PANEL, HUB_HEIGHT)
+            staged = wind_pv_bus_megakernel.staged16
+            got = call()
+            staged = wind_pv_bus_megakernel.staged16 - staged
+            want = wind_pv_bus_plain(flat, lat_cell, m, V, POWn, PANEL, HUB_HEIGHT)
+            err = max(compare(f"wind_bus C={C} B={B}", got[0], want[0]),
+                      compare(f"pv_bus C={C} B={B}", got[1], want[1]))
+            del got, want
+            call_ms = cuda_ms(call, reps)
+            kernel_ms = sum(ms for name, ms in device_breakdown(call, reps).items()
+                            if "wind_pv_bus_kernel" in name) or None
+            log(f"    C={C} (C % 4 = {C % 4}) B={B}: kernel "
+                + (f"{kernel_ms:.4f} ms" if kernel_ms else "not measured (no device time)")
+                + f", call {call_ms:.4f} ms, staged by 16-byte copies: {staged} of 1 launch")
+            out.append({"C": C, "B": B, "kernel_ms": kernel_ms, "call_ms": call_ms,
+                        "staged16": staged, "max_abs_err": err})
+    return out
 
 
 def main():
@@ -3155,8 +3204,10 @@ def main():
         log("  device time by kernel: not measured (the profiler recorded none)")
     for nb in (B, WIDE_B):
         per_sm, smem, tile = occupancy(torch.cuda.current_device(), nb)
-        regs, st, ld = ptxas["megakernel"][f"wind_pv_bus_kernel<{tile // 4}>"]
-        log(f"  B={nb}: wind_pv_bus_kernel<{tile // 4}> ({tile} buses a pass): {regs} registers, "
+        # the bench's rows start 16-byte aligned: the kernel without kLead staging
+        kernel = f"wind_pv_bus_kernel<{tile // 4}, false>"
+        regs, st, ld = ptxas["megakernel"][kernel]
+        log(f"  B={nb}: {kernel} ({tile} buses a pass): {regs} registers, "
             f"{st} B spill stores, {ld} B spill loads, {smem} B of shared memory, "
             f"{per_sm} blocks = {per_sm * 8} warps an SM")
 

@@ -14,6 +14,10 @@ pass up to B = 20, 36 above, so one pass up to B = 36) and cross them,
 the power curve reaches the 256-knot limit, a 100 m hub makes the hub
 speed equal the stored 100 m wind, so that queries fall exactly on the
 curve's duplicated knots, and the roughness changes from hour to hour.
+Cell counts take every residue mod 4, so that field rows start at every
+16-byte phase (the kernel stages each row from the aligned address at or
+below its first cell), and field bases are moved off their 16-byte
+boundary.
 """
 
 import numpy as np
@@ -21,10 +25,11 @@ import pytest
 import torch
 
 from atlite_tpu_torch import build_inputs
-from atlite_tpu_torch.entry import PANEL
+from atlite_tpu_torch.entry import PANEL, step_fn
 from atlite_tpu_torch.ops.megakernel import (
     FIELD_ORDER,
     knot_table,
+    occupancy,
     wind_pv_bus_megakernel,
     wind_pv_bus_plain,
 )
@@ -57,6 +62,11 @@ def assert_close(got, want, shape):
         assert float((g[ok] - w[ok]).abs().max()) <= 1e-5 * float(w[ok].abs().max())
 
 
+def same_bits(a, b):
+    """Equal bit for bit, NaN included."""
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(48, 16, 24, 5), (30, 7, 13, 3), (45, 9, 20, 37),
                                    (100, 12, 40, 70)])
@@ -80,26 +90,106 @@ def test_kernel_across_bus_tiles(cuda_device, B):
     want = wind_pv_bus_plain(*args, PANEL)
     assert_close(got, want, (40, B))
     assert torch.isnan(got[0]).any() and not torch.isnan(got[0]).all()
-    again = wind_pv_bus_megakernel(*args, PANEL)
-    bits = lambda x: x.view(torch.int32)  # NaN included
-    assert all(torch.equal(bits(a), bits(g)) for a, g in zip(again, got))
+    assert same_bits(wind_pv_bus_megakernel(*args, PANEL), got)
 
 
 @pytest.mark.cuda
 def test_one_pass_repeats_its_bits_on_ragged_cells(cuda_device):
     """B = 34 (PyPSA-Eur's countries) in one pass over C = 189 cells, which
-    is no multiple of 4 (the kernel's 4-byte copies, as at PyPSA-Eur's
-    23,711 cells); T = 3000 gives ~3 units a block, so the sums carry
-    over units and items start inside a run; NaN cells poison only their
-    buses; a second call repeats the bits."""
+    is no multiple of 4 (rows staged from the aligned address below their
+    first cell and a padded copy of the matrix, as at PyPSA-Eur's 23,711
+    cells); T = 3000 gives ~3 units a block, so the sums carry over units
+    and items start inside a run; NaN cells poison only their buses; a
+    second call repeats the bits."""
     T, Y, X, B = 3000, 9, 21, 34
     args = card_inputs(T, Y, X, B, device=cuda_device, nan_cells=12)
     got = wind_pv_bus_megakernel(*args, PANEL)
     assert_close(got, wind_pv_bus_plain(*args, PANEL), (T, B))
     assert torch.isnan(got[0]).any() and not torch.isnan(got[0]).all()
-    again = wind_pv_bus_megakernel(*args, PANEL)
-    bits = lambda x: x.view(torch.int32)
-    assert all(torch.equal(bits(a), bits(g)) for a, g in zip(again, got))
+    assert same_bits(wind_pv_bus_megakernel(*args, PANEL), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [20, 34])
+@pytest.mark.parametrize("Y, X", [(4, 48), (9, 21), (10, 19), (5, 43)])  # C % 4 = 0, 1, 2, 3
+def test_every_row_phase_matches_plain_and_repeats(cuda_device, Y, X, B):
+    """Both bus tiles over C of each residue mod 4, so that the rows of a
+    unit start at every offset from a 16-byte boundary; the second call
+    repeats the bits; each launch is counted by ``staged16``."""
+    T = 600
+    args = card_inputs(T, Y, X, B, device=cuda_device, nan_cells=12)
+    before = wind_pv_bus_megakernel.staged16
+    got = wind_pv_bus_megakernel(*args, PANEL)
+    assert_close(got, wind_pv_bus_plain(*args, PANEL), (T, B))
+    assert same_bits(wind_pv_bus_megakernel(*args, PANEL), got)
+    assert wind_pv_bus_megakernel.staged16 - before == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [20, 34])
+def test_ragged_cells_equal_the_zero_padded_run(cuda_device, B):
+    """C = 215 (3 mod 4) gives the bits of the same data zero-padded to 216
+    cells with zero matrix columns there, whose rows all start aligned."""
+    T, Y, X = 600, 5, 43
+    flat, lat_cell, matrix, V, POWn = card_inputs(T, Y, X, B, device=cuda_device, nan_cells=12)
+    pad = lambda a: torch.nn.functional.pad(a, (0, 1)).contiguous()
+    got = wind_pv_bus_megakernel(flat, lat_cell, matrix, V, POWn, PANEL)
+    padded = wind_pv_bus_megakernel({k: pad(v) for k, v in flat.items()}, pad(lat_cell),
+                                    pad(matrix), V, POWn, PANEL)
+    assert same_bits(got, padded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["one", "all"])
+def test_fields_off_their_16_byte_boundary(cuda_device, which):
+    """Fields given as views one float past an allocation's start: one
+    field alone (bases differ in their 16-byte phase: 4-byte copies, not
+    counted by ``staged16``), or all nine (a common phase: 16-byte copies,
+    row 0 read from the boundary below the base); the matrix likewise."""
+    T, Y, X, B = 100, 9, 21, 34
+    flat, lat_cell, matrix, V, POWn = card_inputs(T, Y, X, B, device=cuda_device)
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        return view
+
+    moved = {k: shifted(v) if which == "all" or k == FIELD_ORDER[3] else v
+             for k, v in flat.items()}
+    before = wind_pv_bus_megakernel.staged16
+    got = wind_pv_bus_megakernel(moved, lat_cell, shifted(matrix), V, POWn, PANEL)
+    assert wind_pv_bus_megakernel.staged16 - before == (which == "all")
+    assert_close(got, wind_pv_bus_plain(flat, lat_cell, matrix, V, POWn, PANEL), (T, B))
+    assert same_bits(got, wind_pv_bus_megakernel(flat, lat_cell, matrix, V, POWn, PANEL))
+
+
+@pytest.mark.cuda
+def test_staged16_counts_the_step_on_its_own_fields(cuda_device):
+    """``entry.step_fn`` on (T, Y, X) fields that are each their own
+    allocation, as a Cutout stages them, at a ragged C (17 x 23 cells):
+    every launch stages by 16-byte copies."""
+    fields, _, lon, lat, V, POWn, matrix = build_inputs(48, 17, 23, 34)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=cuda_device)
+    args = ({k: put(fields[k]) for k in FIELD_ORDER}, None, put(lon), put(lat), put(V),
+            put(POWn), put(matrix))
+    step = step_fn()
+    launches, before = wind_pv_bus_megakernel.launches, wind_pv_bus_megakernel.staged16
+    for _ in range(3):
+        step(*args)
+    torch.cuda.synchronize()
+    assert wind_pv_bus_megakernel.launches - launches == 3
+    assert wind_pv_bus_megakernel.staged16 - before == 3
+
+
+@pytest.mark.cuda
+def test_occupancy_keeps_blocks_an_sm(cuda_device):
+    """The padded field rows fit the shared memory of four narrow blocks
+    (B <= 20) and three wide ones an SM."""
+    dev = cuda_device.index or 0
+    assert occupancy(dev, 20)[0] == 4
+    assert occupancy(dev, 34)[0] == 3
 
 
 @pytest.mark.cuda
