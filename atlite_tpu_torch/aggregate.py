@@ -12,30 +12,18 @@ the buses whose matrix row holds a nonzero entry at that cell.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from atlite_tpu_torch.core.device import fp32_matmul
 from atlite_tpu_torch.dataarray import DataArray
+from atlite_tpu_torch.ops import bsr_spmm
 from atlite_tpu_torch.profiling import span
 
 # the JAX package's limit between the dense and the banded path; read at
 # call time
 _DENSE_LIMIT = 32 * 1024 * 1024
-
-
-@contextlib.contextmanager
-def fp32_matmul():
-    """Full float32 products: TF32 off for the duration of the block
-    (it keeps ~3 decimal digits, far outside the parity tolerances)."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def spdiag(v):
@@ -76,14 +64,6 @@ def spmm_closure(matrix, resident=True):
     matrix for one product and releases it.  Each staging runs in a
     ``copy`` span of the enclosing call's hours.
     """
-    # imported here: ops.bsr_spmm imports this module
-    from atlite_tpu_torch.ops.bsr_spmm import (
-        banded_spmm,
-        banded_width,
-        stage_banded,
-        to_banded,
-    )
-
     matrix = sp.csr_matrix(matrix)
     B, C = matrix.shape
     state = {}
@@ -106,13 +86,13 @@ def spmm_closure(matrix, resident=True):
 
         return run
 
-    nb, W = banded_width(matrix)
+    nb, W = bsr_spmm.banded_width(matrix)
     if nb * 128 * W <= (B * C) // 2:
-        banded = to_banded(matrix, force_w=W or None)
+        banded = bsr_spmm.to_banded(matrix, force_w=W or None)
 
         def run_banded(flat):
-            return banded_spmm(
-                banded, flat, staged(flat, lambda f: stage_banded(banded, f.dtype, f.device)))
+            stage = staged(flat, lambda f: bsr_spmm.stage_banded(banded, f.dtype, f.device))
+            return bsr_spmm.banded_spmm(banded, flat, stage)
 
         return run_banded
 

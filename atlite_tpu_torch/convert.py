@@ -6,10 +6,11 @@ routed hydro inflow of plants and the dynamic rating of lines.
 ``convert_and_aggregate`` is the gateway: it composes the spatial
 aggregation (``matrix``, ``shapes``, ``layout``), per-unit normalisation and the
 temporal aggregation around a converter, resident or streamed over time
-chunks.  The streamer (``_chunked_convert``) packs chunk k+1 on a worker
-thread into one of two pinned host buffers and copies it to the card on a
-side stream while chunk k converts; the aggregation runs inside each chunk,
-so only the (bus, T_chunk) series stay behind on the card.  Each step
+chunks.  The streamer (``_chunked_convert``) converts chunk k while the
+Cutout stages chunk k+1 (``Cutout._stream_chunks``: packed on a worker
+thread into its pinned ring, copied to the card on a side stream); the
+aggregation runs inside each chunk, so only the (bus, T_chunk) series
+stay behind on the card.  Each step
 runs in a ``profiling.span`` named ``"<step> <t0>:<t1>"`` (pin, pack,
 copy, convert, aggregate), which a profiler reads per chunk and which
 costs next to nothing without one.  A resident call is the one chunk
@@ -20,12 +21,12 @@ scaling, and ``copy`` each upload to the device inside them.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import re
 import time
 import warnings
 from collections.abc import Mapping
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -34,8 +35,8 @@ import torch
 
 from atlite_tpu_torch.aggregate import aggregate_matrix, spdiag, spmm_closure
 from atlite_tpu_torch.core import timeutil
+from atlite_tpu_torch.core.device import resolve_device
 from atlite_tpu_torch.dataarray import DataArray
-from atlite_tpu_torch.entry import resolve_device
 from atlite_tpu_torch.gis.geometry import parse_geometry
 from atlite_tpu_torch.gis.matrix import _is_series
 from atlite_tpu_torch.physics import csp as csp_physics
@@ -342,85 +343,6 @@ def _stream_windows(cutout, convert_func, time_chunk, convert_kwds):
     return windows
 
 
-class _Stager:
-    """Stages time chunks of a cutout on its device.
-
-    On a CUDA card each chunk is packed into one of two pinned host
-    buffers, copied with ``non_blocking=True`` on a side stream and
-    unpacked there; ``ready`` marks the end.  The buffers, the events of
-    their last copies and the side stream are kept on the cutout
-    (``Cutout._pinned``), so later streamed calls reuse them.  A buffer is
-    refilled only after the event of its last copy has completed, and the
-    compute stream waits on ``ready`` and records its use of every tensor
-    the side stream allocated (``use``).  On the CPU each chunk gets fresh
-    host memory.  ``copies`` counts the chunks copied to the card through
-    the side stream, as the kernels count their ``launches``.
-    """
-
-    copies = 0
-
-    def __init__(self, cutout, only, pack16):
-        self.cutout, self.only, self.pack16 = cutout, only, pack16
-        self.cuda = cutout.device.type == "cuda"
-        self.n = 0
-        if self.cuda and cutout._pinned is None:
-            cutout._pinned = {"stream": torch.cuda.Stream(cutout.device),
-                              "buffers": [None, None], "copied": [None, None]}
-
-    def stage(self, t0, t1):
-        """Chunk [t0, t1) with its fields staged; runs on the worker."""
-        sub = self.cutout.isel_time(t0, t1, only=self.only, pack16=self.pack16)
-        dtype = sub.dtype
-        i, self.n = self.n % 2, self.n + 1
-        pinned = self.cutout._pinned
-
-        def alloc(shape, tdt):
-            if not self.cuda:
-                return torch.empty(shape, dtype=tdt)
-            buffers, copied = pinned["buffers"], pinned["copied"]
-            nbytes = int(np.prod(shape)) * torch.empty((), dtype=tdt).element_size()
-            if copied[i] is not None:
-                copied[i].synchronize()  # the buffer's last copy is done
-            if buffers[i] is None or buffers[i].numel() < nbytes:
-                # a pinned allocation stalls the card: size both buffers
-                # together, before any chunk of this call computes
-                with span("pin", t0, t1):
-                    for j in (0, 1):
-                        if copied[j] is not None:
-                            copied[j].synchronize()
-                        if buffers[j] is None or buffers[j].numel() < nbytes:
-                            buffers[j] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-            return buffers[i][:nbytes].view(tdt).view(shape)
-
-        with span("pack", t0, t1):
-            batch = sub._pack(dtype, alloc)
-        if batch["host"] is None or not self.cuda:
-            sub._fields_cache = (dtype, sub._unpack(batch, batch["host"], dtype))
-            return sub, None
-        stream = pinned["stream"]
-        with torch.cuda.stream(stream):
-            with span("copy", t0, t1):
-                dev = batch["host"].to(self.cutout.device, non_blocking=True)
-            _Stager.copies += 1
-            pinned["copied"][i] = torch.cuda.Event()
-            pinned["copied"][i].record(stream)
-            sub._fields_cache = (dtype, sub._unpack(batch, dev, dtype))
-            ready = torch.cuda.Event()
-            ready.record(stream)
-        return sub, ready
-
-    @staticmethod
-    def use(sub, ready):
-        """Hand a staged chunk to the current (compute) stream."""
-        if ready is None:
-            return
-        compute = torch.cuda.current_stream(sub.device)
-        compute.wait_event(ready)
-        for t in sub._fields_cache[1].values():
-            if t.is_cuda:
-                t.record_stream(compute)
-
-
 def _chunked_convert(cutout, convert_func, time_chunk, aggregate=None, stream_pack=None,
                      **convert_kwds):
     """Stream the conversion over time chunks (see the module docstring).
@@ -452,16 +374,9 @@ def _chunked_convert(cutout, convert_func, time_chunk, aggregate=None, stream_pa
         agg_fn = spmm_closure(matrix)
 
     windows = _stream_windows(cutout, convert_func, time_chunk, convert_kwds)
-    cutout._stage_static()  # once, on this thread's stream
-    stager = _Stager(cutout, needed, pack16)
     pieces, times = [], []
-    with ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(stager.stage, windows[0][0], windows[0][1])
-        for i, (t0, t1, drop) in enumerate(windows):
-            sub, ready = fut.result()
-            if i + 1 < len(windows):
-                fut = ex.submit(stager.stage, windows[i + 1][0], windows[i + 1][1])
-            _Stager.use(sub, ready)
+    with contextlib.closing(cutout._stream_chunks(windows, needed, pack16)) as subs:
+        for (t0, t1, drop), sub in zip(windows, subs):
             with span("convert", t0, t1):
                 da = convert_func(sub, **convert_kwds)
             tvals = da.coords["time"][drop:]

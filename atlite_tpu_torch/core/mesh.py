@@ -31,7 +31,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from atlite_tpu_torch.aggregate import fp32_matmul
+from atlite_tpu_torch.core.device import fp32_matmul
 
 AXES = ("t", "x")
 

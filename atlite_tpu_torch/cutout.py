@@ -7,7 +7,8 @@ mirrored as tensors on the cutout's device by ``fields()``, where the
 converters run.  A time slice made by ``isel_time`` (the streamer's
 chunk) stages all its time fields in one batched upload, raw or packed
 as CF int16 codes (``pack_params``), and reuses its parent's staged
-static fields.
+static fields; ``_stream_chunks`` stages the streamer's chunks that way,
+one ahead, through the cutout's pinned ring (``core/device.PinnedRing``).
 
 Every converter of the JAX Cutout is bound, the GIS members that build
 aggregation matrices and layouts from shapes (``indicatormatrix``,
@@ -32,21 +33,23 @@ import os
 import shutil
 import tempfile
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from atlite_tpu_torch import convert
+from atlite_tpu_torch.core.device import PinnedRing, resolve_device
 from atlite_tpu_torch.core.grid import Grid, coordinate_range
 from atlite_tpu_torch.core.store import read_store, update_store, write_store
 from atlite_tpu_torch.dataarray import DataArray
 from atlite_tpu_torch.datasets import modules as datamodules
-from atlite_tpu_torch.entry import resolve_device
 from atlite_tpu_torch.gis.crs import transform_points
 from atlite_tpu_torch.gis.exclusion import compute_availabilitymatrix
 from atlite_tpu_torch.gis.geometry import box
 from atlite_tpu_torch.gis.matrix import compute_indicatormatrix, compute_intersectionmatrix
+from atlite_tpu_torch.profiling import span
 from atlite_tpu_torch.table import Table
 
 logger = logging.getLogger(__name__)
@@ -100,10 +103,10 @@ class Cutout:
             raise TypeError(f"cutout dtype must be float32 or float64, not {self.dtype}")
         data = cutoutparams.pop("data", None)
         self._invalidate()
-        self._stage_batched = False
-        self._static_device = None
+        self._static_device = None  # a time slice's: its parent's static fields
         self._pack16 = None
-        self._pinned = None  # the streamer's pinned buffers (convert._Stager)
+        self._ring = None  # the streamer's pinned buffers
+        self._copy_stream = None  # and its side stream
         self._mesh = None  # set by shard()
 
         if path is not None and path.exists():
@@ -411,13 +414,16 @@ class Cutout:
     def fields(self, dtype=None):
         """Tensors of all prepared variables on the cutout's device, plus
         the (sin, cos) pairs of stored solar angles; built once per dtype.
+        A time slice (one that holds its parent's static fields) uploads
+        its time fields in one batch; any other cutout, variable by
+        variable.
         On a sharded cutout: {name: ShardedTensor} over its mesh, (T, Y, X)
         variables cut on ("t", None, "x"), (Y, X) ones on (None, "x")."""
         dtype = self.dtype if dtype is None else np.dtype(dtype)
         if self._mesh is not None:
             return self._sharded_fields(dtype)
         if self._fields_cache is None or self._fields_cache[0] != dtype:
-            if self._stage_batched:
+            if self._static_device is not None:
                 batch = self._pack(dtype)
                 dev = None if batch["host"] is None else batch["host"].to(self.device)
                 cache = self._unpack(batch, dev, dtype)
@@ -545,7 +551,6 @@ class Cutout:
         sub = Cutout(data=data, grid_desc=dataclasses.replace(g, time=g.time[t0:t1]),
                      attrs=dict(self.attrs), var_attrs=dict(self.var_attrs),
                      dtype=self.dtype, device=self.device)
-        sub._stage_batched = True
         sub._static_device = self._stage_static()
         sub._pack16 = pack16
         return sub
@@ -557,6 +562,67 @@ class Cutout:
             self._static_cache = {n: self._put(a, self.dtype) for n, a in self.data.items()
                                   if not _time_dims(self.var_attrs, n)}
         return self._static_cache
+
+    _stream_copies = 0  # time slices copied to a card through the side stream
+
+    def _stream_chunks(self, windows, only=None, pack16=None):
+        """The streamer's staging: yields the time slice ``isel_time(t0,
+        t1, only, pack16)`` of each window (t0, t1, ...) in turn, its fields
+        staged and handed to the current stream, while one worker thread
+        packs the next.
+
+        On a CUDA card a slice's time fields are packed into a slot of the
+        cutout's ``PinnedRing`` (kept, with the side stream, for later
+        streamed calls), copied without blocking on the side stream and
+        unpacked there; the current stream waits for that and records its
+        use of every tensor the side stream allocated.  On the CPU each
+        slice gets fresh host memory.  ``Cutout._stream_copies`` counts the
+        slices copied through the side stream, as the kernels count their
+        ``launches``.  Spans ``pin``, ``pack`` and ``copy <t0>:<t1>`` run
+        on the worker."""
+        self._stage_static()  # once, on this thread's stream
+        cuda = self.device.type == "cuda"
+        if self._ring is None:
+            self._ring = PinnedRing(self.device)
+        if cuda and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        ring, stream = self._ring, self._copy_stream
+
+        def stage(t0, t1):
+            sub = self.isel_time(t0, t1, only=only, pack16=pack16)
+            dtype = sub.dtype
+
+            def alloc(shape, tdt):
+                nbytes = int(np.prod(shape)) * tdt.itemsize
+                return ring.host(nbytes, t0, t1).view(tdt).view(shape)
+
+            with span("pack", t0, t1):
+                batch = sub._pack(dtype, alloc)
+            if batch["host"] is None or not cuda:
+                sub._fields_cache = (dtype, sub._unpack(batch, batch["host"], dtype))
+                return sub, None
+            with torch.cuda.stream(stream):
+                with span("copy", t0, t1):
+                    dev = ring.copy(batch["host"], stream)
+                Cutout._stream_copies += 1
+                sub._fields_cache = (dtype, sub._unpack(batch, dev, dtype))
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            return sub, ready
+
+        with ThreadPoolExecutor(max_workers=1) as worker:
+            fut = worker.submit(stage, *windows[0][:2])
+            for k in range(len(windows)):
+                sub, ready = fut.result()
+                if k + 1 < len(windows):
+                    fut = worker.submit(stage, *windows[k + 1][:2])
+                if ready is not None:
+                    compute = torch.cuda.current_stream(self.device)
+                    compute.wait_event(ready)
+                    for t in sub._fields_cache[1].values():
+                        if t.is_cuda:
+                            t.record_stream(compute)
+                yield sub
 
     # ------------------------------------------------------------------ mesh
     def shard(self, mesh=None):
@@ -643,7 +709,6 @@ class Cutout:
         if (device, x0, x1) not in static:
             static[(device, x0, x1)] = {n: sub._put(a, self.dtype) for n, a in sub.data.items()
                                         if not _time_dims(self.var_attrs, n)}
-        sub._stage_batched = True
         sub._static_device = static[(device, x0, x1)]
         return sub
 

@@ -26,6 +26,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from atlite_tpu_torch.core.device import resolve_device
 from atlite_tpu_torch.core.mesh import (
     ShardedTensor,
     _shard_columns,
@@ -35,6 +36,7 @@ from atlite_tpu_torch.core.mesh import (
     sharded_aggregate_banded,
 )
 from atlite_tpu_torch.core.timeutil import solar_ephemeris
+from atlite_tpu_torch.cutout import Cutout
 from atlite_tpu_torch.datasets import synthetic
 from atlite_tpu_torch.ops.megakernel import FIELD_ORDER, knot_table, wind_pv_bus_megakernel
 from atlite_tpu_torch.physics.wind import simplify_power_curve
@@ -86,17 +88,6 @@ def build_inputs(T, Y, X, B, seed=3):
         start="2013-01-01", density=0.05)
     V, POWn = (a.astype(np.float32) for a in simplify_power_curve(V, POWn))
     return fields, eph, x, y, V, POWn, matrix
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device to run on: the given one, else the current CUDA card.
-    Without a card, asking for the default raises."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card is available; pass device='cpu' "
-                           "to run the plain version on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 def from_jax_inputs(fields, eph, lon, lat, V, POWn, matrix, device=None):
@@ -279,8 +270,6 @@ def _dryrun_multiprocess(n_devices, n_processes, devices=None, workdir=None, tim
     made under ``workdir`` (default: a temporary directory; removed
     after); returns [(exit code, output)] of the workers, and raises when
     one failed or skipped a stage."""
-    from atlite_tpu_torch.cutout import Cutout  # the cutout module imports this one
-
     assert n_devices % n_processes == 0
     local = n_devices // n_processes
     kind = _mesh_devices(1, devices)[0].type

@@ -40,7 +40,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from atlite_tpu_torch.aggregate import fp32_matmul
+from atlite_tpu_torch.core.device import PinnedRing, fp32_matmul
 from atlite_tpu_torch.gis import geometry as G
 from atlite_tpu_torch.profiling import span
 
@@ -157,89 +157,6 @@ def _unpack_mask_device(packed, n):
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
     bits = (packed[:, None] >> shifts) & 1
     return bits.reshape(-1)[:n].bool()
-
-
-class _Uploader:
-    """Packed mask blocks onto the device: on a card through two pinned
-    staging buffers in turn, each copy non-blocking and the buffer reused
-    only once its copy has ended; on the CPU the array itself."""
-
-    def __init__(self, device):
-        self.device = device
-        self.bufs = [None, None]
-        self.done = [None, None]
-        self.turn = 0
-
-    def __call__(self, packed):
-        if self.device.type != "cuda":
-            return torch.from_numpy(packed)
-        i, self.turn = self.turn, 1 - self.turn
-        if self.done[i] is not None:
-            self.done[i].synchronize()
-        if self.bufs[i] is None or self.bufs[i].numel() < packed.size:
-            self.bufs[i] = torch.empty(packed.size, dtype=torch.uint8, pin_memory=True)
-        staged = self.bufs[i][:packed.size]
-        staged.numpy()[:] = packed
-        out = staged.to(self.device, non_blocking=True)
-        self.done[i] = torch.cuda.Event()
-        self.done[i].record()
-        return out
-
-
-def _excl_from_parts(parts):
-    """Block accessor over a cached {(b0, b1): device_block} mask: direct
-    hit for a matching block, lazy one-time concatenation + slice for a
-    mismatched block structure (e.g. a different shape count changed
-    row_block)."""
-    state = {}
-
-    def get_excl(b0, b1):
-        blk = parts.get((b0, b1))
-        if blk is not None:
-            return blk
-        if "full" not in state:
-            ordered = [parts[k] for k in sorted(parts)]
-            state["full"] = torch.cat(ordered, dim=0) if len(ordered) > 1 else ordered[0]
-        return state["full"][b0:b1]
-
-    return get_excl
-
-
-class _ColdMask:
-    """A cold call's fine mask, block by block: each block built by
-    ``build(b0, b1)`` (packed bits) on one worker thread, the next one
-    queued while the device works on this one, uploaded and unpacked on
-    ``device``.  Blocks may be asked for in any order; each part is kept
-    under its own bounds, and ``finish`` caches them on the excluder once
-    every block was made (one copy of the mask on the device)."""
-
-    def __init__(self, blocks, build, nx, device, excluder, cache_key):
-        self.blocks, self.build, self.nx = blocks, build, nx
-        self.excluder, self.cache_key = excluder, cache_key
-        self.worker = ThreadPoolExecutor(max_workers=1)
-        self.upload = _Uploader(device)
-        self.futs = {}
-        self.parts = {}
-        if blocks:
-            self.futs[blocks[0]] = self.worker.submit(build, *blocks[0])
-
-    def get(self, b0, b1):
-        i = self.blocks.index((b0, b1))
-        if (b0, b1) not in self.futs:
-            self.futs[(b0, b1)] = self.worker.submit(self.build, b0, b1)
-        packed = self.futs[(b0, b1)].result()
-        if i + 1 < len(self.blocks) and self.blocks[i + 1] not in self.futs:
-            self.futs[self.blocks[i + 1]] = self.worker.submit(self.build, *self.blocks[i + 1])
-        blk = _unpack_mask_device(self.upload(packed), (b1 - b0) * self.nx)
-        self.parts[(b0, b1)] = blk = blk.reshape(b1 - b0, self.nx)
-        return blk
-
-    def finish(self):
-        """Idempotent; called in a finally, so an exception mid-loop never
-        leaks the worker thread or its queued builds."""
-        self.worker.shutdown(wait=True, cancel_futures=True)
-        if len(self.parts) == len(self.blocks):
-            self.excluder._fine_mask_cache = (self.cache_key, dict(self.parts))
 
 
 class _BlockExcluder:
@@ -702,10 +619,12 @@ def _cell_lattice(tL, nyL, nxL, cutout, crs, rect, device, max_device_pixels):
 def _shared_mask(excluder, layers, tL, nyL, nxL, device, row_tile, max_device_pixels):
     """The (nyL, nxL) bool exclusion mask of the shape-independent host
     layers (unbuffered rasters the device does not sample, and geometry
-    layers) over the lattice: cached on the excluder, keyed by the device,
-    the lattice and the layers; cold, built per row block on one worker
-    thread, the next block queued while this one is uploaded (a callable
-    code filter need not be pointwise: it gets the whole lattice at once)."""
+    layers) over the lattice, one tensor on the device: cached on the
+    excluder, keyed by the device, the lattice and the layers.  Cold, it
+    is built per row block on one worker thread, the next block queued
+    while this one is uploaded through a ``PinnedRing`` and unpacked into
+    its rows (one block with a callable code filter, which need not be
+    pointwise)."""
     from atlite_tpu_torch.core.grid import Affine
     from atlite_tpu_torch.gis.exclusion import _native_code_mask, build_exclusion_mask
 
@@ -725,24 +644,20 @@ def _shared_mask(excluder, layers, tL, nyL, nxL, device, row_tile, max_device_pi
     )
     cached = getattr(excluder, "_fine_mask_cache", None)
     if cached is not None and cached[0] == cache_key:
-        return _excl_from_parts(cached[1])(0, nyL)
+        return cached[1]
     for d in layers:
         if not callable(d["codes"]):
             _native_code_mask(d)  # primed before the view copies the layers, so they share it
     view = _BlockExcluder(excluder, rasters=layers)
-    if any(callable(d["codes"]) for d in layers):
-        with span("mask", 0, nyL):
-            m = build_exclusion_mask(view, tL, (nyL, nxL))
-        full = _unpack_mask_device(_Uploader(device)(np.packbits(m)), nyL * nxL)
-        full = full.reshape(nyL, nxL)
-        excluder._fine_mask_cache = (cache_key, {(0, nyL): full})
-        return full
     # geometry-layer dilation reaches across block edges: build with a
     # margin and crop
     margin = max([_dilation_iterations(d["buffer"], res)
                   for d in excluder.geometries if d["buffer"]] + [0])
-    row_block = max(row_tile, min(nyL, max_device_pixels // max(8 * nxL, 1)))
-    row_block = -(-row_block // row_tile) * row_tile
+    if any(callable(d["codes"]) for d in layers):
+        row_block = nyL  # a callable need not be pointwise: one block
+    else:
+        row_block = max(row_tile, min(nyL, max_device_pixels // max(8 * nxL, 1)))
+        row_block = -(-row_block // row_tile) * row_tile
     blocks = [(b0, min(b0 + row_block, nyL)) for b0 in range(0, nyL, row_block)]
 
     def _build(b0, b1):
@@ -754,11 +669,17 @@ def _shared_mask(excluder, layers, tL, nyL, nxL, device, row_tile, max_device_pi
             m = build_exclusion_mask(view, sub_t, (m1 - m0, nxL))
             return np.packbits(m[b0 - m0:b0 - m0 + (b1 - b0)])
 
-    cold = _ColdMask(blocks, _build, nxL, device, excluder, cache_key)
-    try:
-        for b0, b1 in blocks:
-            cold.get(b0, b1)
-    finally:
-        cold.finish()
-    return _excl_from_parts(cold.parts)(0, nyL)
-
+    mask = torch.empty((nyL, nxL), dtype=torch.bool, device=device)
+    ring = PinnedRing(device)
+    with ThreadPoolExecutor(max_workers=1) as worker:
+        fut = worker.submit(_build, *blocks[0])
+        for k, (b0, b1) in enumerate(blocks):
+            packed = fut.result()
+            if k + 1 < len(blocks):
+                fut = worker.submit(_build, *blocks[k + 1])
+            host = ring.host(packed.size)
+            host.numpy()[:] = packed
+            blk = _unpack_mask_device(ring.copy(host), (b1 - b0) * nxL)
+            mask[b0:b1] = blk.reshape(b1 - b0, nxL)
+    excluder._fine_mask_cache = (cache_key, mask)
+    return mask

@@ -33,7 +33,7 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
-from atlite_tpu_torch.aggregate import fp32_matmul
+from atlite_tpu_torch.core.device import fp32_matmul
 
 
 def to_bsr(matrix: sp.spmatrix, block_b=32, block_c=512):

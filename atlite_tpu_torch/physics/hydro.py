@@ -18,8 +18,8 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from atlite_tpu_torch.core.device import resolve_device
 from atlite_tpu_torch.dataarray import DataArray
-from atlite_tpu_torch.entry import resolve_device
 from atlite_tpu_torch.gis.geometry import parse_geometry, transform_geometry
 
 logger = logging.getLogger(__name__)

@@ -462,9 +462,9 @@ def staging_gate(label, chunks, windows):
     """Raise unless a streamed call staged every chunk through the card's
     copy stream: each window ran each step's range (host records, always
     kept) and packed on the host, and the streamer counted one copy to
-    the card a chunk (``convert._Stager.copies``, reset before the call;
+    the card a chunk (``Cutout._stream_copies``, reset before the call;
     the trace may drop a transfer, the count does not)."""
-    copies = conv._Stager.copies
+    copies = Cutout._stream_copies
     staged = list(chunks) == windows and copies == len(windows) and all(
         {"pack", "copy", "convert", "aggregate"} <= set(c) and c["pack"] > 0
         for c in chunks.values())
@@ -585,7 +585,7 @@ def timed_mode(name, mode, fn, kw, shape, windows, band_flops):
     "chunks"}."""
     B, T, C = shape
     wind_pv_bus_megakernel.launches = bsr_spmm_kernel.launches = 0
-    conv._Stager.copies = 0
+    Cutout._stream_copies = 0
     torch.cuda.synchronize()
     with profiled() as prof:
         t0 = time.perf_counter()
@@ -606,7 +606,7 @@ def timed_mode(name, mode, fn, kw, shape, windows, band_flops):
         f"kernel launches {wind_pv_bus_megakernel.launches + bsr_spmm_kernel.launches}"
         + ("" if idle is None else
            f"; device busy {idle[0]:.1f} ms, idle share {idle[1]:.3f}")
-        + (f"; {conv._Stager.copies} copies to the card counted by the streamer, {n_copies} "
+        + (f"; {Cutout._stream_copies} copies to the card counted by the streamer, {n_copies} "
            f"pinned transfers in the trace, {lost} step(s) of the "
            "split not in it" if kw.get("time_chunk") else ""))
     for (c0, c1), c in chunks.items():
@@ -1492,16 +1492,16 @@ def store_phase(cut, matrix, card, in_memory):
                         "free_GB": free / 1e9, "fs": fs_type(STORE_DIR)})
         del reopened
 
-        def from_store(modes, suffix="", pinned=None):
+        def from_store(modes, suffix="", ring=None):
             """Phase 10's calls in ``modes`` from a fresh reopen of the store,
             by (name, mode + suffix); set-up first on a cutout without
-            ``pinned`` buffers: a streamed raw PV call sizes them, and the
-            resident fields are staged from the memory maps.  Returns the
-            results and the pinned buffers; nothing else stays mapped."""
+            pinned buffers (``ring``): a streamed raw PV call sizes them, and
+            the resident fields are staged from the memory maps.  Returns the
+            results and the Cutout's pinned ring; nothing else stays mapped."""
             c = Cutout(path)
-            c._pinned = pinned
+            c._ring = ring
             runs = continental_runs(c, matrix)
-            if pinned is None:
+            if ring is None:
                 runs["pv"](**CONT_MODES["streamed raw"])
                 t0 = time.perf_counter()
                 c.fields()
@@ -1511,11 +1511,11 @@ def store_phase(cut, matrix, card, in_memory):
             return {(name, mode + suffix): timed_mode(name, f"{mode}{suffix} (store)", fn,
                                                       CONT_MODES[mode], (B, T, C), windows,
                                                       band_flops)
-                    for mode in modes for name, fn in runs.items()}, c._pinned
+                    for mode in modes for name, fn in runs.items()}, c._ring
 
         # 3. the runs from the reopened store, warm; then cold: the maps
         # gone, the files flushed and dropped from the page cache
-        results, pinned = from_store(list(CONT_MODES))
+        results, ring = from_store(list(CONT_MODES))
         gc.collect()
         warm_share = cached_share(files)
         t0 = time.perf_counter()
@@ -1527,7 +1527,7 @@ def store_phase(cut, matrix, card, in_memory):
             + (": the file system keeps them, so the cold runs read a warm cache"
                if cold_share > 0.5 else ""))
         entries[0].update(cached_before=warm_share, cached_after_drop=cold_share)
-        results.update(from_store(["streamed raw"], " cold", pinned)[0])
+        results.update(from_store(["streamed raw"], " cold", ring)[0])
         log(f"  page cache after the cold runs: {cached_share(files):.1%}")
         # 4. checks: the same float32 bytes through the same code
         for (name, mode), r in results.items():
@@ -1645,10 +1645,10 @@ def availability_case(name, cutout, shapes, make_exc, card):
         raise RuntimeError(f"{name}: availability {dev.shape}, finite "
                            f"{np.isfinite(dev).all()}, range {dev.min()}..{dev.max()}")
     # the shape-independent host mask, where the excluder has host layers
-    parts = getattr(exc, "_fine_mask_cache", (None, {}))[1]
-    if any(p.device.type != "cuda" for p in parts.values()):
+    mask = getattr(exc, "_fine_mask_cache", (None, None))[1]
+    if mask is not None and mask.device.type != "cuda":
         raise RuntimeError(f"{name}: the fine mask is not on the card")
-    mask_mb = sum(p.numel() * p.element_size() for p in parts.values()) / 1e6
+    mask_mb = 0.0 if mask is None else mask.numel() * mask.element_size() / 1e6
     warm = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1691,7 +1691,7 @@ def availability_case(name, cutout, shapes, make_exc, card):
     ops_ms, bytes_ms = n_ops / FP32_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     log(f"  {name}: {S} shapes of {E} edges, their windows {P / 1e6:.1f} Mpix, onto {NY} x "
-        f"{NX} cells; shared host mask {len(parts)} row blocks, {mask_mb:.1f} MB on the card; "
+        f"{NX} cells; shared host mask {mask_mb:.1f} MB on the card; "
         f"peak device memory of the cold call {peak_gb:.2f} GB above what earlier phases hold")
     log(f"    cold {cold_s:.3f} s, warm {warm_s:.3f} s (runs {', '.join(f'{w:.3f}' for w in warm)}) "
         f"= {P / warm_s / 1e6:.1f} Mpix-shapes/s; warm under the profiler {warm_wall:.3f} s, "
@@ -1713,7 +1713,7 @@ def availability_case(name, cutout, shapes, make_exc, card):
     log(f"    first {AVAIL_HOST_SHAPES} shapes against the host path ({host_s:.2f} s): max abs "
         f"diff {diff:.3e} (tolerance {AVAIL_TOL}) on {card}")
     return {"name": name, "shapes": S, "edges": E, "fine_mpix": P / 1e6, "cells": NY * NX,
-            "blocks": len(parts), "cold_s": cold_s, "warm_s": warm_s,
+            "blocks": len(build_ms), "cold_s": cold_s, "warm_s": warm_s,
             "mpix_shapes_per_s": P / warm_s / 1e6,
             "warm_busy_ms": busy, "warm_idle": None if warm_idle is None else warm_idle[1],
             "cold_busy_ms": None if cold_idle is None else cold_idle[0],
@@ -2786,7 +2786,7 @@ def year_call(label, fn, kw, cells, windows=None):
     idle share and, streamed, the staging gate and the per-chunk pack /
     copy / convert ms (their range over the chunks).  Returns {"vals",
     "wall", "idle", "chunks"}."""
-    conv._Stager.copies = 0
+    Cutout._stream_copies = 0
     torch.cuda.synchronize()
     with profiled() as prof:
         t0 = time.perf_counter()
@@ -2810,7 +2810,7 @@ def year_call(label, fn, kw, cells, windows=None):
             return (f"{min(ms):.1f}-{max(ms):.1f} ms ({len(ms)} of {len(chunks)} in the trace)"
                     if ms else "not in the trace")
 
-        log(f"      {len(windows)} chunks, {conv._Stager.copies} copies to the card counted "
+        log(f"      {len(windows)} chunks, {Cutout._stream_copies} copies to the card counted "
             f"by the streamer ({n_pinned} pinned transfers in the trace): pack "
             f"{spread('pack')}, copy {spread('copy')}, convert {spread('convert')}, "
             f"aggregate {spread('aggregate')} a chunk")

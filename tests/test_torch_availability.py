@@ -361,7 +361,7 @@ def test_no_overlap_raises_as_host():
         TK.availability_matrix_device(cut, [TG.box(-4, 56, 1.5, 62)], texc)
 
 
-def test_blocked_build_with_buffered_geometry(pair):
+def test_blocked_build_with_buffered_geometry(pair, monkeypatch):
     """The cold mask is built per row block on a worker thread; a buffered
     geometry layer's dilation reaches across block edges, so the margin
     build must equal the one-block build; the warm (cached) mask, and a
@@ -381,9 +381,16 @@ def test_blocked_build_with_buffered_geometry(pair):
     assert_fine_masks_equal(tc, shapes, texc, jexc)
     a_one = TK.availability_matrix_device(tc, shapes, make()[0])
     exc_blk = make()[0]
+    real_build, builds = texcl.build_exclusion_mask, []
+
+    def built(*args, **kwargs):
+        builds.append(args[2])
+        return real_build(*args, **kwargs)
+
+    monkeypatch.setattr(texcl, "build_exclusion_mask", built)
     a_blk = TK.availability_matrix_device(tc, shapes, exc_blk, max_device_pixels=150_000)
     np.testing.assert_allclose(a_blk, a_one, atol=1e-6)
-    assert len(exc_blk._fine_mask_cache[1]) > 1  # cached per block
+    assert len(builds) > 1  # built per block
     a_warm = TK.availability_matrix_device(tc, shapes, exc_blk, max_device_pixels=150_000)
     np.testing.assert_allclose(a_warm, a_blk, atol=1e-6)
     a_warm2 = TK.availability_matrix_device(tc, shapes, exc_blk, max_device_pixels=400_000)

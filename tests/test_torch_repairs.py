@@ -4,8 +4,8 @@
   clipping (JAX clips silently; its resident result is the reference);
 - the store's sweep of orphaned temporary directories matches its own
   name literally, not as a glob pattern;
-- the cold availability mask caches each row block under its own bounds,
-  whatever order the blocks were asked for in;
+- the cold availability mask puts each row block in its own rows of the
+  one cached mask, which a warm call returns as it is;
 - the streamer counts its copies to the card (none on the CPU);
 - a Cutout's text names its prepared features as the JAX package's does.
 
@@ -22,7 +22,7 @@ import jax
 
 import atlite_tpu
 import atlite_tpu_torch
-from atlite_tpu_torch import ExclusionContainer, convert
+from atlite_tpu_torch import ExclusionContainer
 from atlite_tpu_torch.core.grid import Affine
 from atlite_tpu_torch.gis import kernels
 from atlite_tpu_torch.gis.geometry import box
@@ -80,7 +80,12 @@ def test_store_sweeps_only_its_own_orphans(tmp_path):
     assert atlite_tpu_torch.Cutout(tmp_path / "a[bc]", device="cpu").prepared_features.rows()
 
 
-def test_cold_mask_blocks_out_of_order_cache_under_their_bounds(monkeypatch):
+def test_cold_mask_blocks_land_in_their_rows_and_a_warm_call_reuses_the_mask(monkeypatch):
+    """A cold host mask built over several row blocks equals the one-block
+    build row for row (no block lands in another's rows), and a warm call
+    returns the cached tensor itself, building and allocating nothing."""
+    from atlite_tpu_torch.gis import exclusion
+
     c = atlite_tpu_torch.Cutout(device="cpu", module="synthetic", x=slice(-4, 1.5),
                                 y=slice(56, 62), time="2013-01-01").prepare(features=["height"])
     rng = np.random.default_rng(0)
@@ -94,33 +99,35 @@ def test_cold_mask_blocks_out_of_order_cache_under_their_bounds(monkeypatch):
         exc.add_raster(landuse, codes=[4, 5])
         return exc
 
-    def avail(exc):
-        # small device blocks: several row blocks a call
-        return kernels.availability_matrix_device(c, regions, exc, max_device_pixels=200_000)
+    real_build, builds = exclusion.build_exclusion_mask, []
 
-    want = avail(excluder())
+    def counted(*args, **kwargs):
+        builds.append(args[2])
+        return real_build(*args, **kwargs)
 
-    made = []
-
-    class Backwards(kernels._ColdMask):
-        """Makes every block at once, last first, then hands them out."""
-
-        def __init__(self, *args):
-            super().__init__(*args)
-            made.extend(self.blocks)
-            for b in reversed(self.blocks):
-                super().get(*b)
-
-        def get(self, b0, b1):
-            return self.parts[(b0, b1)]
-
-    monkeypatch.setattr(kernels, "_ColdMask", Backwards)
+    monkeypatch.setattr(exclusion, "build_exclusion_mask", counted)
+    one = excluder()
+    want = kernels.availability_matrix_device(c, regions, one)
+    assert len(builds) == 1
     exc = excluder()
-    cold = avail(exc)
-    assert len(made) > 2
-    key, parts = exc._fine_mask_cache
-    assert sorted(parts) == made
-    warm = avail(exc)
+    # small device blocks: several row blocks a call
+    cold = kernels.availability_matrix_device(c, regions, exc, max_device_pixels=200_000)
+    assert len(builds) > 3
+    mask = exc._fine_mask_cache[1]
+    assert mask.shape == one._fine_mask_cache[1].shape == builds[0]
+    assert torch.equal(mask, one._fine_mask_cache[1])
+
+    real_shared, returned = kernels._shared_mask, []
+
+    def shared(*args):
+        returned.append(real_shared(*args))
+        return returned[-1]
+
+    monkeypatch.setattr(kernels, "_shared_mask", shared)
+    n = len(builds)
+    warm = kernels.availability_matrix_device(c, regions, exc, max_device_pixels=200_000)
+    assert len(builds) == n
+    assert returned[0] is mask and returned[0].data_ptr() == mask.data_ptr()
     np.testing.assert_array_equal(cold, want)
     np.testing.assert_array_equal(warm, want)
 
@@ -142,18 +149,25 @@ def test_cold_mask_selects_the_native_codes_once(monkeypatch):
         native.append(np.shape(values) == data.shape)
         return real(values, codes)
 
+    real_build, builds = exclusion.build_exclusion_mask, []
+
+    def built(*args, **kwargs):
+        builds.append(args[2])
+        return real_build(*args, **kwargs)
+
     monkeypatch.setattr(exclusion, "_code_select", counted)
+    monkeypatch.setattr(exclusion, "build_exclusion_mask", built)
     kernels.availability_matrix_device(c, [box(-4, 56, 1.5, 62)], exc, max_device_pixels=200_000)
-    assert len(exc._fine_mask_cache[1]) > 2 and sum(native) == 1
+    assert len(builds) > 2 and sum(native) == 1
 
 
 def test_streamer_counts_no_copy_on_the_cpu():
     c = atlite_tpu_torch.Cutout(device="cpu", **SMALL).prepare(features=["wind"])
     m = sp.random(3, c.shape[0] * c.shape[1], density=0.3, random_state=1, format="csr")
-    before = convert._Stager.copies
+    before = atlite_tpu_torch.Cutout._stream_copies
     r = c.wind("Vestas_V112_3MW", matrix=m, aggregate_time=None, time_chunk=24)
     assert r.values.shape == (3, 72)
-    assert convert._Stager.copies == before
+    assert atlite_tpu_torch.Cutout._stream_copies == before
 
 
 def test_repr_equals_jax_for_a_cutout_of_two_modules(tmp_path):
