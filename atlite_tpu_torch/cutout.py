@@ -4,7 +4,8 @@ of ``atlite_tpu/cutout.py``), in memory or in an ``.atc`` store.
 The fields live on the host as numpy arrays (read-only memory maps of
 the store's files when the cutout was reopened from disk) and are
 mirrored as tensors on the cutout's device by ``fields()``, where the
-converters run.  A time slice made by ``isel_time`` (the streamer's
+converters run: each variable is staged when a call first reads it
+(``_Fields``).  A time slice made by ``isel_time`` (the streamer's
 chunk) stages all its time fields in one batched upload, raw or packed
 as CF int16 codes (``pack_params``), and reuses its parent's staged
 static fields; ``_stream_chunks`` stages the streamer's chunks that way,
@@ -32,7 +33,9 @@ import logging
 import os
 import shutil
 import tempfile
+import threading
 import warnings
+from collections.abc import Mapping, MutableMapping
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -102,6 +105,7 @@ class Cutout:
         if self.dtype not in _TORCH_DTYPE:
             raise TypeError(f"cutout dtype must be float32 or float64, not {self.dtype}")
         data = cutoutparams.pop("data", None)
+        self._lock = threading.RLock()  # builds the fields mapping and stages into it
         self._invalidate()
         self._static_device = None  # a time slice's: its parent's static fields
         self._pack16 = None
@@ -396,42 +400,36 @@ class Cutout:
         os.replace(tmp, fn)
 
     # -------------------------------------------------------------- device
+    staged_variables = 0  # tensors that fields() staged on a first read,
+    staged_bytes = 0  # and their bytes, (sin, cos) pairs included
+
     def _put(self, arr, dtype):
-        """A host array as a tensor on the cutout's device.  A read-only
-        array (a reopened store's memory map) is copied into memory of its
-        own on the CPU, where a tensor would alias it, and read by the
-        upload alone on a card."""
-        a = np.asarray(arr)
-        if not a.flags.writeable:
-            if self.device.type == "cpu":
-                a = np.array(a, dtype=dtype)
-            else:
-                with warnings.catch_warnings():
-                    warnings.filterwarnings("ignore", "The given NumPy array is not writable")
-                    return torch.as_tensor(a, dtype=_TORCH_DTYPE[dtype], device=self.device)
-        return torch.as_tensor(a, dtype=_TORCH_DTYPE[dtype], device=self.device)
+        """A host array as a tensor on the cutout's device (``_upload``)."""
+        return _upload(arr, dtype, self.device)
 
     def fields(self, dtype=None):
         """Tensors of all prepared variables on the cutout's device, plus
         the (sin, cos) pairs of stored solar angles; built once per dtype.
         A time slice (one that holds its parent's static fields) uploads
-        its time fields in one batch; any other cutout, variable by
-        variable.
+        its time fields in one batch; any other cutout returns a
+        ``_Fields`` mapping, which stages each variable when a call first
+        reads it.
         On a sharded cutout: {name: ShardedTensor} over its mesh, (T, Y, X)
         variables cut on ("t", None, "x"), (Y, X) ones on (None, "x")."""
         dtype = self.dtype if dtype is None else np.dtype(dtype)
         if self._mesh is not None:
             return self._sharded_fields(dtype)
-        if self._fields_cache is None or self._fields_cache[0] != dtype:
-            if self._static_device is not None:
-                batch = self._pack(dtype)
-                dev = None if batch["host"] is None else batch["host"].to(self.device)
-                cache = self._unpack(batch, dev, dtype)
-            else:
-                cache = {n: self._put(a, dtype) for n, a in self.data.items()}
-                _derive_solar_trig(cache)
-            self._fields_cache = (dtype, cache)
-        return self._fields_cache[1]
+        with self._lock:
+            if self._fields_cache is None or self._fields_cache[0] != dtype:
+                if self._static_device is not None:
+                    batch = self._pack(dtype)
+                    dev = None if batch["host"] is None else batch["host"].to(self.device)
+                    cache = self._unpack(batch, dev, dtype)
+                else:
+                    cache = _Fields(self.data, dtype, self.device, len(self.grid_desc.time),
+                                    self._lock)
+                self._fields_cache = (dtype, cache)
+            return self._fields_cache[1]
 
     def _pack(self, dtype, alloc=None):
         """Host half of a time slice's batched upload.
@@ -958,16 +956,132 @@ def _read_netcdf_cutout(path):
     return grid_kwargs, data, attrs, var_attrs
 
 
-def _derive_solar_trig(cache):
-    """Add (sin, cos) tensors of the stored solar angles to a fields
-    cache; every converter call then reuses them.  cos(altitude) is
+def _upload(arr, dtype, device):
+    """A host array as a tensor on ``device``.  A read-only array (a
+    reopened store's memory map) is copied into memory of its own on the
+    CPU, where a tensor would alias it, and read by the upload alone on a
+    card."""
+    a = np.asarray(arr)
+    if not a.flags.writeable:
+        if device.type == "cpu":
+            a = np.array(a, dtype=dtype)
+        else:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+                return torch.as_tensor(a, dtype=_TORCH_DTYPE[dtype], device=device)
+    return torch.as_tensor(a, dtype=_TORCH_DTYPE[dtype], device=device)
+
+
+# the (sin, cos) names of each stored solar angle
+_TRIG = {"solar_altitude": ("solar_altitude_sin", "solar_altitude_cos"),
+         "solar_azimuth": ("solar_azimuth_sin", "solar_azimuth_cos")}
+
+
+def _sin_cos(angle, t):
+    """(sin, cos) of the solar angle named ``angle``.  cos(altitude) is
     sqrt(clip(1 - sin^2, 0)), as in the JAX package: altitude lies in
     [-pi/2, pi/2], so its cosine is not negative."""
-    if "solar_altitude" in cache and "solar_altitude_sin" not in cache:
-        sin_alt = torch.sin(cache["solar_altitude"])
-        cache["solar_altitude_sin"] = sin_alt
-        cache["solar_altitude_cos"] = torch.sqrt(torch.clamp(1.0 - sin_alt**2, min=0.0))
-    if "solar_azimuth" in cache and "solar_azimuth_sin" not in cache:
-        az = cache["solar_azimuth"]
-        cache["solar_azimuth_sin"] = torch.sin(az)
-        cache["solar_azimuth_cos"] = torch.cos(az)
+    sin = torch.sin(t)
+    if angle == "solar_altitude":
+        return sin, torch.sqrt(torch.clamp(1.0 - sin**2, min=0.0))
+    return sin, torch.cos(t)
+
+
+def _derive_solar_trig(cache):
+    """Add (sin, cos) tensors of the stored solar angles to a fields
+    cache; every converter call then reuses them."""
+    for angle, (sin, cos) in _TRIG.items():
+        if angle in cache and sin not in cache:
+            cache[sin], cache[cos] = _sin_cos(angle, cache[angle])
+
+
+class _Fields(dict):
+    """What ``Cutout.fields()`` returns: a dict of the names of every
+    prepared variable, and of the (sin, cos) pairs that
+    ``_derive_solar_trig`` would add, whose tensors are staged on the
+    device when a call first reads them.
+
+    ``in``, ``iter``, ``len`` and ``keys()`` name them all and stage
+    nothing.  A first read uploads the variable (``_upload``) or derives
+    both tensors of its pair from the staged angle (``_sin_cos``), in a
+    ``copy 0:T`` span; a later read is the dict's own lookup.  Reading
+    the whole mapping (``items()``, ``values()``, ``copy()``, ``{**f}``)
+    stages everything; a tensor written in is kept.  The host arrays are
+    those the cutout held when the mapping was built, and the cutout's
+    lock keeps two threads from staging one name twice.
+    ``Cutout.staged_variables`` and ``Cutout.staged_bytes`` count what is
+    staged."""
+
+    def __init__(self, data, dtype, device, T, lock):
+        super().__init__()
+        self._data, self._dtype, self._device, self._T = dict(data), dtype, device, T
+        self._lock = lock
+        self._pairs = {n: angle for angle, pair in _TRIG.items()
+                       if angle in data and pair[0] not in data for n in pair}
+        self._names = dict.fromkeys([*data, *self._pairs])
+
+    def __missing__(self, name):
+        if name not in self._names:
+            raise KeyError(name)
+        with self._lock:
+            if not dict.__contains__(self, name):  # else another thread staged it
+                self._stage(name)
+        return dict.__getitem__(self, name)
+
+    def _stage(self, name):
+        angle = self._pairs.get(name)
+        with span("copy", 0, self._T):
+            if angle is None:
+                staged = {name: _upload(self._data[name], self._dtype, self._device)}
+            else:
+                staged = dict(zip(_TRIG[angle], _sin_cos(angle, self[angle])))
+        for n, t in staged.items():
+            if n in self._names and not dict.__contains__(self, n):
+                dict.__setitem__(self, n, t)
+                Cutout.staged_variables += 1
+                Cutout.staged_bytes += t.numel() * t.element_size()
+
+    def __contains__(self, name):
+        return name in self._names
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __reversed__(self):
+        return reversed(self._names)
+
+    def __len__(self):
+        return len(self._names)
+
+    def __repr__(self):
+        return f"<fields {list(self._names)}, {dict.__len__(self)} staged>"
+
+    def __setitem__(self, name, t):
+        self._names[name] = None
+        dict.__setitem__(self, name, t)
+
+    def __delitem__(self, name):
+        del self._names[name]
+        dict.pop(self, name, None)
+
+    def get(self, name, default=None):
+        return self[name] if name in self._names else default
+
+    def copy(self):
+        return dict(self)
+
+    def clear(self):
+        self._names.clear()
+        dict.clear(self)
+
+    def __or__(self, other):
+        return {**self, **other}
+
+    def __ior__(self, other):
+        self.update(other)
+        return self
+
+    __eq__ = Mapping.__eq__
+    keys, items, values = Mapping.keys, Mapping.items, Mapping.values
+    pop, popitem, setdefault, update = (MutableMapping.pop, MutableMapping.popitem,
+                                        MutableMapping.setdefault, MutableMapping.update)

@@ -634,6 +634,14 @@ def continental_runs(cut, matrix):
     }
 
 
+def stage_all(cut):
+    """``cut.fields()`` with every field staged on the card (the mapping
+    stages each when first read), so that set-up holds the staging."""
+    fields = cut.fields()
+    list(fields.values())
+    return fields
+
+
 def continental_path(cut, matrix, card):
     """Phase 10: wind and PV resident, streamed raw and streamed packed;
     returns the resident wind capacity factors of the first CHUNK hours
@@ -644,7 +652,7 @@ def continental_path(cut, matrix, card):
     runs, modes = continental_runs(cut, matrix), CONT_MODES
     log(f"continental path on {card}:")
     t0 = time.perf_counter()
-    fields = cut.fields()
+    fields = stage_all(cut)
     torch.cuda.synchronize()
     log(f"  resident staging: {len(fields)} fields on the card in "
         f"{time.perf_counter() - t0:.2f} s (set-up of the resident mode)")
@@ -1504,7 +1512,7 @@ def store_phase(cut, matrix, card, in_memory):
             if ring is None:
                 runs["pv"](**CONT_MODES["streamed raw"])
                 t0 = time.perf_counter()
-                c.fields()
+                stage_all(c)
                 torch.cuda.synchronize()
                 log(f"  set-up: pinned buffers; resident staging from the memory maps "
                     f"{time.perf_counter() - t0:.2f} s")
@@ -2549,7 +2557,7 @@ def ingest_phase(cut, matrix, card, in_memory):
 
     # (d) wind and PV from the store on the card
     t_part = time.perf_counter()
-    era.fields()
+    stage_all(era)
     torch.cuda.synchronize()
     log(f"  (d) resident staging from the store's memory maps: {time.perf_counter() - t_part:.2f}"
         " s (set-up)")
@@ -2883,7 +2891,7 @@ def year_phase(card):
         f"({B}, {C}) matrix of {YEAR_REGIONS[0]} x {YEAR_REGIONS[1]} regions, route "
         f"{aggregation_route(matrix)[2]}")
     t0 = time.perf_counter()
-    fields = cut.fields()
+    fields = stage_all(cut)
     torch.cuda.synchronize()
     log(f"    resident staging: {len(fields)} fields on the card in "
         f"{time.perf_counter() - t0:.2f} s (set-up)")

@@ -45,7 +45,9 @@ PORT_ONLY = {"convert_line_rating": {"device"}, "compute_availabilitymatrix": {"
 # members of the JAX classes that later slices port (ROADMAP queue 1)
 DEFERRED_CUTOUT = set()
 DEFERRED_DATAARRAY = set()
-PORT_ONLY_MEMBERS = {"Cutout": {"torch_dtype"}, "DataArray": set()}
+# the port's own: its torch dtype, and the counters of what fields() staged
+PORT_ONLY_MEMBERS = {"Cutout": {"torch_dtype", "staged_variables", "staged_bytes"},
+                     "DataArray": set()}
 
 
 def public_functions(module):

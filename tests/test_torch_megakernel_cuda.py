@@ -17,14 +17,15 @@ curve's duplicated knots, and the roughness changes from hour to hour.
 Cell counts take every residue mod 4, so that field rows start at every
 16-byte phase (the kernel stages each row from the aligned address at or
 below its first cell), and field bases are moved off their 16-byte
-boundary.
+boundary.  One test holds the device memory of a step over a Cutout's
+fields, which stages only the nine it reads.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from atlite_tpu_torch import build_inputs
+from atlite_tpu_torch import Cutout, build_inputs
 from atlite_tpu_torch.entry import PANEL, step_fn
 from atlite_tpu_torch.ops.megakernel import (
     FIELD_ORDER,
@@ -248,3 +249,52 @@ def test_kernel_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="table"):
         wind_pv_bus_megakernel(flat, lat_cell, matrix, V, POWn, PANEL,
                                table=knot_table(V, POWn).cpu())
+
+
+@pytest.mark.cuda
+def test_step_stages_only_its_nine_fields(cuda_device):
+    """A month (T = 744) of the benchmark's 14 time variables and height,
+    C = 651 (≡ 3 mod 4, as the year's 23,711 cells): ``fields()`` stages
+    nothing, and one ``entry.step_fn`` call stages the nine fields it reads
+    and allocates nothing but its buffers, which the same step over fields
+    staged up front with ``_put`` shows; a second call stages nothing.
+    The (wind, PV) pair equals that step's bit for bit."""
+    c = Cutout(device=cuda_device, module="synthetic", x=slice(-4, 3.5), y=slice(50, 55),
+               time="2013-01").prepare(
+        features=["wind", "influx", "temperature", "runoff", "height"])
+    del c.data["wnd10m"]  # not a variable of the benchmark's set
+    T, (Y, X) = len(c.grid_desc.time), c.shape
+    assert (T, Y * X % 4, len(c.data)) == (744, 3, 15)
+    _, _, _, _, V, POWn, matrix = build_inputs(16, Y, X, 34)
+    put = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=cuda_device)
+    lat, V, POWn, matrix = put(c.grid_desc.y), put(V), put(POWn), put(matrix)
+
+    def peak_of(fields):
+        """(wind, PV) of a fresh step, and the bytes allocated above what
+        was allocated before ``fields()``, at their peak; every block from
+        a fresh segment, as the allocator counts it."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        base = torch.cuda.memory_allocated(cuda_device)
+        out = step_fn()(fields(), None, None, lat, V, POWn, matrix)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(cuda_device) - base
+
+    eager = {n: c._put(a, c.dtype) for n, a in c.data.items()}
+    want, buffers = peak_of(lambda: eager)
+    v0, b0 = Cutout.staged_variables, Cutout.staged_bytes
+    got, peak = peak_of(c.fields)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(cuda_device)
+    one = torch.empty((T, Y, X), device=cuda_device)
+    field = torch.cuda.memory_allocated(cuda_device) - before  # as the allocator counts it
+    del one
+    assert 9 * field <= peak <= 9 * field + buffers
+    assert Cutout.staged_variables - v0 == 9
+    assert Cutout.staged_bytes - b0 == 9 * T * Y * X * 4
+    fields = c.fields()
+    assert set(dict.keys(fields)) == set(FIELD_ORDER) and len(fields) == 19
+    assert same_bits(got, want)
+    again = step_fn()(fields, None, None, lat, V, POWn, matrix)
+    assert Cutout.staged_variables - v0 == 9 and same_bits(again, want)
