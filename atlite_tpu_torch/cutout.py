@@ -38,6 +38,7 @@ import warnings
 from collections.abc import Mapping, MutableMapping
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from time import perf_counter
 
 import numpy as np
 import torch
@@ -562,6 +563,9 @@ class Cutout:
         return self._static_cache
 
     _stream_copies = 0  # time slices copied to a card through the side stream
+    streamed_bytes = 0  # bytes of the host stacks (codes or raw) the streamer staged
+    stream_pack_s = 0.0  # the worker's seconds inside _pack
+    stream_wait_s = 0.0  # the caller's seconds waiting for a staged slice
 
     def _stream_chunks(self, windows, only=None, pack16=None):
         """The streamer's staging: yields the time slice ``isel_time(t0,
@@ -576,8 +580,11 @@ class Cutout:
         use of every tensor the side stream allocated.  On the CPU each
         slice gets fresh host memory.  ``Cutout._stream_copies`` counts the
         slices copied through the side stream, as the kernels count their
-        ``launches``.  Spans ``pin``, ``pack`` and ``copy <t0>:<t1>`` run
-        on the worker."""
+        ``launches``; ``Cutout.streamed_bytes`` the bytes of the host stacks
+        staged (copied, on a card), ``Cutout.stream_pack_s`` the worker's
+        seconds in ``_pack`` and ``Cutout.stream_wait_s`` the seconds the
+        caller waited for a slice.  Spans ``pin``, ``pack`` and ``copy
+        <t0>:<t1>`` run on the worker."""
         self._stage_static()  # once, on this thread's stream
         cuda = self.device.type == "cuda"
         if self._ring is None:
@@ -594,8 +601,12 @@ class Cutout:
                 nbytes = int(np.prod(shape)) * tdt.itemsize
                 return ring.host(nbytes, t0, t1).view(tdt).view(shape)
 
+            start = perf_counter()
             with span("pack", t0, t1):
                 batch = sub._pack(dtype, alloc)
+            Cutout.stream_pack_s += perf_counter() - start
+            if batch["host"] is not None:
+                Cutout.streamed_bytes += batch["host"].numel() * batch["host"].element_size()
             if batch["host"] is None or not cuda:
                 sub._fields_cache = (dtype, sub._unpack(batch, batch["host"], dtype))
                 return sub, None
@@ -611,7 +622,9 @@ class Cutout:
         with ThreadPoolExecutor(max_workers=1) as worker:
             fut = worker.submit(stage, *windows[0][:2])
             for k in range(len(windows)):
+                start = perf_counter()
                 sub, ready = fut.result()
+                Cutout.stream_wait_s += perf_counter() - start
                 if k + 1 < len(windows):
                     fut = worker.submit(stage, *windows[k + 1][:2])
                 if ready is not None:

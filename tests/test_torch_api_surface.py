@@ -45,8 +45,10 @@ PORT_ONLY = {"convert_line_rating": {"device"}, "compute_availabilitymatrix": {"
 # members of the JAX classes that later slices port (ROADMAP queue 1)
 DEFERRED_CUTOUT = set()
 DEFERRED_DATAARRAY = set()
-# the port's own: its torch dtype, and the counters of what fields() staged
-PORT_ONLY_MEMBERS = {"Cutout": {"torch_dtype", "staged_variables", "staged_bytes"},
+# the port's own: its torch dtype, the counters of what fields() staged and
+# of what the streamer staged, packed and waited for
+PORT_ONLY_MEMBERS = {"Cutout": {"torch_dtype", "staged_variables", "staged_bytes",
+                                "streamed_bytes", "stream_pack_s", "stream_wait_s"},
                      "DataArray": set()}
 
 

@@ -9,7 +9,9 @@ Held equal: the lattice and stamps of ``coordinate_range``/``Grid``
 one float32 product and sum or a transcendental in either framework.
 Held bit for bit against every variable staged up front: what
 ``fields()`` stages on a first read (names alone stage nothing), with
-the counters ``Cutout.staged_variables`` and ``staged_bytes``.
+the counters ``Cutout.staged_variables`` and ``staged_bytes``.  The
+streamer's counters (``streamed_bytes``, ``stream_pack_s``,
+``stream_wait_s``) grow by a streamed call and not by a resident one.
 """
 
 import sys
@@ -20,6 +22,7 @@ import jax
 import numpy as np
 import pandas as pd
 import pytest
+import scipy.sparse as sp
 import torch
 
 import atlite_tpu
@@ -378,3 +381,30 @@ def test_threads_stage_each_name_once(pair):
     assert not any(t.is_alive() for t in threads) and not errors and len(got) == 12
     assert Cutout.staged_variables - v0 == len(names)
     assert all(a is b for row in got for a, b in zip(row, got[0]))
+
+
+# ---------------------------------------------------------------- streamer
+def stream_counters():
+    return Cutout.streamed_bytes, Cutout.stream_pack_s, Cutout.stream_wait_s
+
+
+@pytest.mark.parametrize("pack, chunk, chunks", [(None, 24, 3), ("int16", 24, 3), ("int16", 30, 3),
+                                                 ("int16", 72, 1)])
+def test_streamer_counts_bytes_and_seconds(pair, pack, chunk, chunks):
+    """A streamed call adds its host stacks' bytes (chunks x fields x
+    hours x cells x 2 packed, x 4 raw) and the seconds its worker packed
+    and its caller waited; a resident call adds nothing."""
+    c = fresh(pair[1])
+    ncells = c.shape[0] * c.shape[1]
+    m = sp.random(3, ncells, density=0.3, random_state=1, format="csr")
+    kw = dict(matrix=m, aggregate_time=None)
+    before = stream_counters()
+    c.wind("Vestas_V112_3MW", **kw)
+    assert stream_counters() == before
+    c.wind("Vestas_V112_3MW", time_chunk=chunk, stream_pack=pack, **kw)
+    after = stream_counters()
+    # the speeds at 100 m and 10 m and the roughness (the log law); a short
+    # last window slides back to a whole chunk
+    fields = len({"wnd100m", "wnd10m", "roughness"})
+    assert after[0] - before[0] == chunks * fields * chunk * ncells * (2 if pack else 4)
+    assert after[1] > before[1] and after[2] > before[2]
