@@ -43,7 +43,7 @@ from time import perf_counter
 import numpy as np
 import torch
 
-from atlite_tpu_torch import convert
+from atlite_tpu_torch import convert, native
 from atlite_tpu_torch.core.device import PinnedRing, resolve_device
 from atlite_tpu_torch.core.grid import Grid, coordinate_range
 from atlite_tpu_torch.core.store import read_store, update_store, write_store
@@ -65,6 +65,25 @@ NAN_CODE = 65535  # the packed NaN sentinel; codes of values run 0..65534
 def _time_dims(var_attrs, name):
     dims = tuple(var_attrs.get(name, {}).get("dims", ("time", "y", "x")))
     return bool(dims) and dims[0] == "time"
+
+
+def _pack_numpy(a, params, out):
+    """The int16 codes of ``a`` into the uint16 ``out`` with ``params`` =
+    (offset, scale, log_space), in numpy; returns the NaN-ignoring (min,
+    max) of ``(value - offset) / scale`` (of the log in log space)."""
+    off, scale, lg = params
+    a = np.array(a, dtype=np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        if lg:
+            np.log(a, out=a)
+        np.subtract(a, off, out=a)
+        np.divide(a, scale, out=a)
+        lo, hi = np.fmin.reduce(a, axis=None), np.fmax.reduce(a, axis=None)
+        np.rint(a, out=a)
+        np.clip(a, 0.0, 65534.0, out=a)
+    a[np.isnan(a)] = NAN_CODE
+    out[...] = a
+    return lo, hi
 
 
 def _out_of_pack_range(name, codes, params):
@@ -439,7 +458,10 @@ class Cutout:
         ``alloc(shape, torch_dtype)`` (default: a new CPU tensor): raw in
         ``dtype``, or, when every one has pack parameters, as uint16 codes
         ``rint((value - offset) / scale)`` clipped to 0..65534 (NAN_CODE for
-        NaN; log of the value in log space), held in an int16 tensor.
+        NaN; log of the value in log space), held in an int16 tensor: by
+        one native pass over the host's cores (``native.pack16``;
+        ``Cutout.packed_native`` counts the fields it packed), else by the
+        numpy loop ``_pack_numpy``, the same codes.
         Raises ValueError when a variable's values reach more than half a
         code step beyond its pack range (stale ``pack_min``/``pack_max``):
         clipping them would change the data silently.
@@ -456,22 +478,17 @@ class Cutout:
         if pack16 and all(n in pack16 for n in same):
             host = alloc((len(same),) + shape, torch.int16)
             codes = host.numpy().view(np.uint16)
-            for i, n in enumerate(same):
-                off, scale, lg = pack16[n]
-                a = np.array(self.data[n], dtype=np.float64)
-                with np.errstate(invalid="ignore", divide="ignore"):
-                    if lg:
-                        np.log(a, out=a)
-                    np.subtract(a, off, out=a)
-                    np.divide(a, scale, out=a)
-                    lo, hi = np.fmin.reduce(a, axis=None), np.fmax.reduce(a, axis=None)
-                    if lo < -0.5 or hi > 65534.5:
-                        raise ValueError(_out_of_pack_range(n, (lo, hi), pack16[n]))
-                    np.rint(a, out=a)
-                    np.clip(a, 0.0, 65534.0, out=a)
-                a[np.isnan(a)] = NAN_CODE
-                codes[i] = a
-            return {"host": host, "names": same, "params": [pack16[n] for n in same]}
+            params = [pack16[n] for n in same]
+            sources = [self.data[n] for n in same]
+            ranges = native.pack16(sources, params, codes)
+            if ranges is None:
+                ranges = [_pack_numpy(a, p, c) for a, p, c in zip(sources, params, codes)]
+            else:
+                Cutout.packed_native += len(same)
+            for n, p, (lo, hi) in zip(same, params, ranges):
+                if lo < -0.5 or hi > 65534.5:
+                    raise ValueError(_out_of_pack_range(n, (lo, hi), p))
+            return {"host": host, "names": same, "params": params}
         host = alloc((len(same),) + shape, _TORCH_DTYPE[dtype])
         stack = host.numpy()
         for i, n in enumerate(same):
@@ -565,6 +582,7 @@ class Cutout:
     _stream_copies = 0  # time slices copied to a card through the side stream
     streamed_bytes = 0  # bytes of the host stacks (codes or raw) the streamer staged
     stream_pack_s = 0.0  # the worker's seconds inside _pack
+    packed_native = 0  # time fields of a chunk that _pack packed by the native pass
     stream_wait_s = 0.0  # the caller's seconds waiting for a staged slice
 
     def _stream_chunks(self, windows, only=None, pack16=None):
@@ -573,18 +591,21 @@ class Cutout:
         staged and handed to the current stream, while one worker thread
         packs the next.
 
-        On a CUDA card a slice's time fields are packed into a slot of the
-        cutout's ``PinnedRing`` (kept, with the side stream, for later
-        streamed calls), copied without blocking on the side stream and
-        unpacked there; the current stream waits for that and records its
+        On a CUDA card a slice's time fields are packed by the worker into
+        a slot of the cutout's ``PinnedRing`` (kept, with the side stream,
+        for later streamed calls).  When the caller asks for the slice, its
+        copy is issued without blocking on the side stream and unpacked
+        there, so its fields are allocated only once the previous slice's
+        conversion has returned (a card holds two slices' fields, however
+        fast the pack); the current stream waits for that and records its
         use of every tensor the side stream allocated.  On the CPU each
         slice gets fresh host memory.  ``Cutout._stream_copies`` counts the
         slices copied through the side stream, as the kernels count their
         ``launches``; ``Cutout.streamed_bytes`` the bytes of the host stacks
         staged (copied, on a card), ``Cutout.stream_pack_s`` the worker's
         seconds in ``_pack`` and ``Cutout.stream_wait_s`` the seconds the
-        caller waited for a slice.  Spans ``pin``, ``pack`` and ``copy
-        <t0>:<t1>`` run on the worker."""
+        caller waited for a slice.  Spans ``pin`` and ``pack <t0>:<t1>``
+        run on the worker, ``copy <t0>:<t1>`` on the caller's thread."""
         self._stage_static()  # once, on this thread's stream
         cuda = self.device.type == "cuda"
         if self._ring is None:
@@ -593,9 +614,8 @@ class Cutout:
             self._copy_stream = torch.cuda.Stream(self.device)
         ring, stream = self._ring, self._copy_stream
 
-        def stage(t0, t1):
+        def pack(t0, t1):  # on the worker
             sub = self.isel_time(t0, t1, only=only, pack16=pack16)
-            dtype = sub.dtype
 
             def alloc(shape, tdt):
                 nbytes = int(np.prod(shape)) * tdt.itemsize
@@ -603,13 +623,17 @@ class Cutout:
 
             start = perf_counter()
             with span("pack", t0, t1):
-                batch = sub._pack(dtype, alloc)
+                batch = sub._pack(sub.dtype, alloc)
             Cutout.stream_pack_s += perf_counter() - start
             if batch["host"] is not None:
                 Cutout.streamed_bytes += batch["host"].numel() * batch["host"].element_size()
+            return sub, batch
+
+        def hand_over(t0, t1, sub, batch):  # on the caller's thread
+            dtype = sub.dtype
             if batch["host"] is None or not cuda:
                 sub._fields_cache = (dtype, sub._unpack(batch, batch["host"], dtype))
-                return sub, None
+                return sub
             with torch.cuda.stream(stream):
                 with span("copy", t0, t1):
                     dev = ring.copy(batch["host"], stream)
@@ -617,22 +641,24 @@ class Cutout:
                 sub._fields_cache = (dtype, sub._unpack(batch, dev, dtype))
                 ready = torch.cuda.Event()
                 ready.record(stream)
-            return sub, ready
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(ready)
+            for t in sub._fields_cache[1].values():
+                if t.is_cuda:
+                    t.record_stream(compute)
+            return sub
 
         with ThreadPoolExecutor(max_workers=1) as worker:
-            fut = worker.submit(stage, *windows[0][:2])
+            fut = worker.submit(pack, *windows[0][:2])
             for k in range(len(windows)):
                 start = perf_counter()
-                sub, ready = fut.result()
+                sub, batch = fut.result()
                 Cutout.stream_wait_s += perf_counter() - start
+                # the previous slice's conversion has returned: its
+                # temporaries are freed before this slice's fields exist
+                sub = hand_over(*windows[k][:2], sub, batch)
                 if k + 1 < len(windows):
-                    fut = worker.submit(stage, *windows[k + 1][:2])
-                if ready is not None:
-                    compute = torch.cuda.current_stream(self.device)
-                    compute.wait_event(ready)
-                    for t in sub._fields_cache[1].values():
-                        if t.is_cuda:
-                            t.record_stream(compute)
+                    fut = worker.submit(pack, *windows[k + 1][:2])
                 yield sub
 
     # ------------------------------------------------------------------ mesh

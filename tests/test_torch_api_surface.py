@@ -48,7 +48,8 @@ DEFERRED_DATAARRAY = set()
 # the port's own: its torch dtype, the counters of what fields() staged and
 # of what the streamer staged, packed and waited for
 PORT_ONLY_MEMBERS = {"Cutout": {"torch_dtype", "staged_variables", "staged_bytes",
-                                "streamed_bytes", "stream_pack_s", "stream_wait_s"},
+                                "streamed_bytes", "stream_pack_s", "stream_wait_s",
+                                "packed_native"},
                      "DataArray": set()}
 
 

@@ -6,18 +6,23 @@ the seconds its worker packed and its caller waited (``stream_pack_s``,
 series equal the resident call's within 1e-5 * max (raw) and bit for bit
 between calls; a second streamed call reuses the Cutout's pinned ring.
 At PyPSA-Eur's size (23,711 cells x 8760 h, 2048 regions) an int16 onwind
-call streams 12 chunks of 730 h through the banded aggregation.  Without
+call streams 12 chunks of 730 h through the banded aggregation.  An int16
+PV call whose chunks hold 106 MB of fields gives the same series packed by
+the native pass and by the numpy loop, with no higher a peak of device
+memory, and counts fields x chunks in ``Cutout.packed_native``.  Without
 a card these tests skip; they import neither JAX nor the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_stream_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
 
-from atlite_tpu_torch import Cutout
+from atlite_tpu_torch import Cutout, native
 from atlite_tpu_torch.core.grid import Grid
 from atlite_tpu_torch.ops import bsr_spmm
 
@@ -118,3 +123,47 @@ def test_pypsa_eur_year_streams_twelve_banded_chunks(monkeypatch):
     assert after[0] - before[0] == 12 * 2 * 730 * Y * X * 2
     assert after[1] > before[1] and after[2] >= before[2]
     assert got.shape == (2048, T) and np.isfinite(got).all()
+
+
+@pytest.mark.cuda
+def test_native_pack_keeps_the_peak_and_the_series(monkeypatch):
+    """PyPSA-Eur's era5 grid (131 x 181 cells at 0.3 deg) over 20 days of
+    June (two synthetic days in turn), PV streamed in three chunks of
+    160 h, each 7 fields x 160 h x 23,711 cells x 4 B = 106 MB on the
+    card: once packed by the numpy loop, once by the native pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the streamer copies to the card only there")
+    days = Cutout(device="cpu", module="synthetic", x=slice(-12, 42), y=slice(33, 72), dx=0.3,
+                  dy=0.3, time=slice("2013-06-01", "2013-06-02")).prepare(
+                      features=["influx", "temperature"])
+    T, chunk = 480, 160
+    g = days.grid_desc
+    grid = dataclasses.replace(g, time=g.time[0] + np.arange(T) * np.timedelta64(1, "h"))
+    c = Cutout(data={n: np.ascontiguousarray(np.tile(a, (T // len(g.time), 1, 1)))
+                     for n, a in days.data.items()},
+               grid_desc=grid, attrs=dict(days.attrs), var_attrs=dict(days.var_attrs))
+    Y, X = c.shape
+    m = sp.random(64, Y * X, density=0.05, random_state=3, format="csr")
+    runs = {}
+    for route in ("numpy", "native"):
+        monkeypatch.setattr(native, "_pack_lib", None)
+        monkeypatch.setattr(native, "_pack_tried", False)
+        if route == "numpy":
+            monkeypatch.setenv("ATLITE_TPU_NO_NATIVE", "1")
+        else:
+            monkeypatch.delenv("ATLITE_TPU_NO_NATIVE", raising=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        packed, copies = Cutout.packed_native, Cutout._stream_copies
+        got = c.pv("CSi", {"slope": 35.0, "azimuth": 180.0}, matrix=m, per_unit=True,
+                   aggregate_time=None, time_chunk=chunk, stream_pack="int16").values
+        torch.cuda.synchronize()
+        runs[route] = (got, torch.cuda.max_memory_allocated(),
+                       Cutout.packed_native - packed, Cutout._stream_copies - copies)
+    (want, numpy_peak, numpy_packed, numpy_copies), (got, peak, packed, copies) = \
+        runs["numpy"], runs["native"]
+    assert numpy_copies == copies == T // chunk
+    assert numpy_packed == 0 and packed == 7 * (T // chunk)
+    assert peak <= numpy_peak, (peak, numpy_peak)
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (64, T) and np.isfinite(got).all()
