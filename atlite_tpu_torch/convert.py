@@ -16,7 +16,9 @@ copy, convert, aggregate), which a profiler reads per chunk and which
 costs next to nothing without one.  A resident call is the one chunk
 0:T: ``pack`` covers the technology lookup and the matrix composition,
 ``convert`` the converter, ``aggregate`` the aggregation and the per-unit
-scaling, and ``copy`` each upload to the device inside them.
+scaling, and ``copy`` each upload to the device inside them; the
+degree-day converters fold their hours into days in an ``aggregate``
+span nested in ``convert``.
 """
 
 from __future__ import annotations
@@ -516,9 +518,15 @@ def coefficient_of_performance(cutout, source="air", sink_T=55.0, c0=None, c1=No
 # heat / cooling demand: one step a day
 # ---------------------------------------------------------------------------
 def _daily_demand(cutout, threshold, a, constant, hour_shift, kind):
-    fields = cutout.fields()
-    days, ids = timeutil.daily_groups(cutout.grid_desc.time, hour_shift)
-    daily_T = thermal.daily_mean(fields["temperature"], ids, len(days))
+    from atlite_tpu_torch.cutout import Cutout  # the counter's owner imports this module
+
+    temperature = cutout.fields()["temperature"]
+    # the day grouping and the daily mean fold the hours of the enclosing
+    # converter span: an aggregate span nested in it
+    with span("aggregate"):
+        days, ids = timeutil.daily_groups(cutout.grid_desc.time, hour_shift)
+        daily_T = thermal.daily_mean(temperature, ids, len(days))
+    Cutout.daily_cell_hours += temperature.numel()
     demand = thermal.degree_day_demand(daily_T, threshold, a, constant, kind)
     g = cutout.grid_desc
     return DataArray(demand, coords={"time": days, "y": g.y, "x": g.x},

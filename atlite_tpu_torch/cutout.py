@@ -422,6 +422,7 @@ class Cutout:
     # -------------------------------------------------------------- device
     staged_variables = 0  # tensors that fields() staged on a first read,
     staged_bytes = 0  # and their bytes, (sin, cos) pairs included
+    daily_cell_hours = 0  # cell-hours that the degree-day converters folded into days
 
     def _put(self, arr, dtype):
         """A host array as a tensor on the cutout's device (``_upload``)."""

@@ -45,11 +45,12 @@ PORT_ONLY = {"convert_line_rating": {"device"}, "compute_availabilitymatrix": {"
 # members of the JAX classes that later slices port (ROADMAP queue 1)
 DEFERRED_CUTOUT = set()
 DEFERRED_DATAARRAY = set()
-# the port's own: its torch dtype, the counters of what fields() staged and
-# of what the streamer staged, packed and waited for
+# the port's own: its torch dtype, the counters of what fields() staged, of
+# what the streamer staged, packed and waited for, and of the cell-hours the
+# degree-day converters folded into days
 PORT_ONLY_MEMBERS = {"Cutout": {"torch_dtype", "staged_variables", "staged_bytes",
                                 "streamed_bytes", "stream_pack_s", "stream_wait_s",
-                                "packed_native"},
+                                "packed_native", "daily_cell_hours"},
                      "DataArray": set()}
 
 
