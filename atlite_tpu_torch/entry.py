@@ -38,7 +38,7 @@ from atlite_tpu_torch.core.mesh import (
 from atlite_tpu_torch.core.timeutil import solar_ephemeris
 from atlite_tpu_torch.cutout import Cutout
 from atlite_tpu_torch.datasets import synthetic
-from atlite_tpu_torch.ops.megakernel import FIELD_ORDER, knot_table, wind_pv_bus_megakernel
+from atlite_tpu_torch.ops.megakernel import FIELD_ORDER, Plan, knot_table, wind_pv_bus_megakernel
 from atlite_tpu_torch.physics.wind import simplify_power_curve
 from atlite_tpu_torch.profiling import span
 
@@ -103,27 +103,58 @@ def from_jax_inputs(fields, eph, lon, lat, V, POWn, matrix, device=None):
             put(lon), put(lat), put(V), put(POWn), put(matrix))
 
 
+def _versions(tensors):
+    """What a kept plan must still match in ``tensors`` besides their
+    identities: each one's version, base pointer, shape and strides, and
+    the CUDA stream current on the first one's card; a key equal to no
+    other where a tensor keeps no version (made in inference mode)."""
+    device = tensors[0].device
+    try:
+        return (torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else None,
+                *[(t._version, t.data_ptr(), t.shape, t.stride()) for t in tensors])
+    except RuntimeError:
+        return object()
+
+
+def _same(tensors, held):
+    """Whether ``tensors`` are the very ``held`` ones, unchanged since."""
+    return (len(tensors) == len(held[0]) and all(a is b for a, b in zip(tensors, held[0]))
+            and _versions(tensors) == held[1])
+
+
 def step_fn():
     """The headline step: ``step(fields, eph, lon, lat, V, POWn, matrix) ->
     (wind_bus, pv_bus)``, each (T, B), with the signature of
     ``__graft_entry__._step_fn``.  ``eph`` is unused: the step takes the
-    stored solar angles.  The step keeps the kernel's knot table of the
-    power curve it was last given, and builds it again when the curve's
-    tensors are other ones or were written since.  Its argument building
-    runs in a ``pack 0:T`` span (and the kernel's own, with its launch in
-    ``convert 0:T``: ``wind_pv_bus_megakernel``)."""
-    last = {"V": None, "POWn": None, "versions": None, "table": None}
+    stored solar angles.  The step keeps the kernel's launch plan
+    (``megakernel.Plan``: the flat (T, C) views of the nine fields, the
+    cells' latitudes, the kernel's arguments and scratch) for the fields,
+    ``lat``, ``V`` and ``POWn`` it was last given, and builds it again when
+    one of them is another tensor or was written, moved or reshaped since,
+    or another CUDA stream is current; the matrix may change from call to
+    call.  It keeps the knot table of the power curve alike.  So it holds
+    its last inputs until it is given others.  Each call goes through
+    ``wind_pv_bus_megakernel`` with the kept plan.  Its key and, on a
+    rebuild, the flattening run in a ``pack 0:T`` span (and the kernel's
+    own, with its launch in ``convert 0:T``: ``megakernel.Plan``)."""
+    last = {"plan": None, "flat": None, "inputs": ((), None), "curve": ((), None), "table": None}
 
     def step(fields, eph, lon, lat, V, POWn, matrix):
         T, Y, X = fields["wnd100m"].shape
         with span("pack", 0, T):
-            flat = {k: fields[k].reshape(T, Y * X) for k in FIELD_ORDER}
-            lat_cell = lat.repeat_interleave(X)
-            versions = (V._version, POWn._version)
-            if last["V"] is not V or last["POWn"] is not POWn or last["versions"] != versions:
-                last.update(V=V, POWn=POWn, versions=versions, table=knot_table(V, POWn))
+            inputs = (*[fields[k] for k in FIELD_ORDER], lat, V, POWn)
+            hit = _same(inputs, last["inputs"])
+            if not hit:
+                flat = {k: fields[k].reshape(T, Y * X) for k in FIELD_ORDER}
+                lat_cell = lat.repeat_interleave(X)
+                if not _same((V, POWn), last["curve"]):
+                    last.update(table=knot_table(V, POWn), curve=((V, POWn), _versions((V, POWn))))
+        if not hit:
+            plan = Plan(flat, lat_cell, V, POWn, last["table"], PANEL, HUB_HEIGHT)
+            last.update(plan=plan, flat=(flat, lat_cell), inputs=(inputs, _versions(inputs)))
+        flat, lat_cell = last["flat"]
         return wind_pv_bus_megakernel(flat, lat_cell, matrix, V, POWn, PANEL,
-                                      hub_height=HUB_HEIGHT, table=last["table"])
+                                      hub_height=HUB_HEIGHT, plan=last["plan"])
 
     return step
 

@@ -50,20 +50,24 @@ def _panel(panel):
     return {k: float(panel.get(k, d)) for k, d in _PANEL_KEYS}
 
 
-def _check(fields, lat_cell, matrix, V, POWn):
-    """Raise on what the kernel does not take; returns (T, C, B, device)."""
+def _check_tensor(name, t):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, not {type(t).__name__}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, not {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check(fields, lat_cell, V, POWn):
+    """Raise on resident inputs the kernel does not take; returns (T, C,
+    device)."""
     missing = [k for k in FIELD_ORDER if k not in fields]
     if missing:
         raise KeyError(f"fields lack {missing}")
-    tensors = {**{k: fields[k] for k in FIELD_ORDER}, "lat_cell": lat_cell,
-               "matrix": matrix, "V": V, "POWn": POWn}
+    tensors = {**{k: fields[k] for k in FIELD_ORDER}, "lat_cell": lat_cell, "V": V, "POWn": POWn}
     for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, not {type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, not {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_tensor(name, t)
     device = fields["wnd100m"].device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"tensors must lie on the CPU or a CUDA card, not {device}")
@@ -80,14 +84,22 @@ def _check(fields, lat_cell, matrix, V, POWn):
         raise ValueError(f"empty fields {(T, C)}")
     if lat_cell.shape != (C,):
         raise ValueError(f"lat_cell must be ({C},), not {tuple(lat_cell.shape)}")
-    if matrix.ndim != 2 or matrix.shape[1] != C or matrix.shape[0] < 1:
-        raise ValueError(f"matrix must be (B, {C}), not {tuple(matrix.shape)}")
     if V.ndim != 1 or V.shape != POWn.shape:
         raise ValueError("V and POWn must be 1-D of one length")
     if not 2 <= V.shape[0] <= MAX_KNOTS:
         raise ValueError(f"the power curve needs 2 to {MAX_KNOTS} knots, "
                          f"not {V.shape[0]}")
-    return T, C, matrix.shape[0], device
+    return T, C, device
+
+
+def _check_matrix(matrix, C, device):
+    """Raise on a matrix the kernel does not take; returns B."""
+    _check_tensor("matrix", matrix)
+    if matrix.device != device:
+        raise ValueError(f"['matrix'] are not on {device}, where the fields are")
+    if matrix.ndim != 2 or matrix.shape[1] != C or matrix.shape[0] < 1:
+        raise ValueError(f"matrix must be (B, {C}), not {tuple(matrix.shape)}")
+    return matrix.shape[0]
 
 
 # the kernel's unit of work (kRows x kCells of csrc/megakernel.cu): a
@@ -207,16 +219,129 @@ def wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height=80.0)
             aggregate.dense_spmm(cf_p.reshape(T, -1), matrix))
 
 
+class Plan:
+    """The fused step's launch, built once for its resident inputs and
+    launched with any matrix over their cells.
+
+    Building it checks ``fields`` (FIELD_ORDER keys, (T, C) float32),
+    ``lat_cell`` (C,), ``V`` and ``POWn`` (2 to MAX_KNOTS knots) and
+    ``panel`` (Huld parameters), and holds them.  On a CUDA card it also
+    holds, for the card and the CUDA stream current there: the knot
+    ``table`` (``knot_table(V, POWn)``, built when None), the nine field
+    pointers and the rounded panel parameters as C arrays, whether the
+    fields share a 16-byte phase, and scratch that every launch rewrites in
+    full: the cells' panel geometry, and per bus count the work split, the
+    (2, n_items, 8, B) partial sums and, where the matrix takes a padded
+    copy, that copy.  Stream order keeps the scratch of one launch from
+    the next, so a plan launches only on its own stream.  The argument
+    building runs in a ``pack 0:T`` span, on the card only.
+
+    ``launch(matrix)`` checks the (B, C) matrix, allocates the (2, T, B)
+    output and launches the kernel; on the CPU it runs the plain version.
+    The plan caches no matrix: the launch's prologue pads the matrix it is
+    given.  ``wind_pv_bus_megakernel.planned`` counts the launches of a
+    plan that had launched before.
+    """
+
+    def __init__(self, fields, lat_cell, V, POWn, table, panel, hub_height=80.0):
+        self.T, self.C, self.device = _check(fields, lat_cell, V, POWn)
+        prm = _panel(panel)
+        self._inputs = (fields, lat_cell, V, POWn, panel, hub_height)
+        self._launched = False
+        if self.device.type == "cpu":
+            return
+        with span("pack", 0, self.T):
+            if table is None:
+                table = knot_table(V, POWn)
+            if not (table.device == self.device and table.dtype == torch.float32
+                    and table.is_contiguous()
+                    and table.shape == (1 << (V.shape[0] - 1).bit_length(), 4)):
+                raise ValueError("table must be knot_table(V, POWn) on the fields' device")
+            # the kernel multiplies by the reciprocal, rounded once here
+            prm["r_irradiance"] = float(np.float32(1.0) / np.float32(prm["r_irradiance"]))
+            ptrs = [fields[k].data_ptr() for k in FIELD_ORDER]
+            self._staged16 = all((p ^ ptrs[0]) % 16 == 0 for p in ptrs)
+            self._lib = _library()
+            self._stream = torch.cuda.current_stream(self.device).cuda_stream
+            self._table = table
+            self._params = (ctypes.c_float * 12)(float(hub_height), *prm.values())
+            self._panel_cells = torch.empty((self.C, 4), dtype=torch.float32, device=self.device)
+            self._head = (self.device.index, (ctypes.c_void_p * len(FIELD_ORDER))(*ptrs),
+                          lat_cell.data_ptr())
+            # C % 4 != 0: every matrix takes a padded copy; else a matrix off
+            # a 16-byte boundary does
+            self._pad = self.C % 4 != 0
+            self._parts = {}  # B -> partial sums
+            self._buses = {}  # (B, padded) -> (arguments, passes, their buffers)
+
+    def _bus_args(self, B, padded):
+        """The launch's arguments between the matrix's pointer and the
+        output's for B buses, the passes over them and their buffers."""
+        got = self._buses.get((B, padded))
+        if got is None:
+            T, C, device = self.T, self.C, self.device
+            n_blocks, split, n_items, n_passes = _grid(device.index, T, C, B)
+            part = self._parts.get(B)
+            if part is None:
+                part = self._parts[B] = torch.empty((2, n_items, UNIT_ROWS, B),
+                                                    dtype=torch.float32, device=device)
+            # the matrix with 16-byte rows, filled by the kernel's prologue
+            mat_pad = torch.empty((B, -(-C // 4) * 4), dtype=torch.float32, device=device) \
+                if padded else None
+            args = (None if mat_pad is None else mat_pad.data_ptr(), self._table.data_ptr(),
+                    self._table.shape[0], self._inputs[2].shape[0], T, C, B,
+                    split["block_unit"].data_ptr(), split["block_item"].data_ptr(),
+                    split["tile_item"].data_ptr(), n_blocks, n_items, self._params,
+                    self._panel_cells.data_ptr(), part.data_ptr())
+            got = self._buses[(B, padded)] = (args, n_passes, (part, mat_pad))
+        return got
+
+    def launch(self, matrix):
+        """(wind_bus, pv_bus), each (T, B), of the step with the (B, C)
+        float32 ``matrix``; on the card the argument building runs in a
+        ``pack 0:T`` span, the launch in ``convert 0:T``."""
+        if self.device.type == "cpu":
+            _check_matrix(matrix, self.C, self.device)
+            fields, lat_cell, V, POWn, panel, hub_height = self._inputs
+            out = wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height)
+            self._count_reuse()
+            return out
+        T = self.T
+        with span("pack", 0, T):
+            B = _check_matrix(matrix, self.C, self.device)
+            if torch.cuda.current_stream(self.device).cuda_stream != self._stream:
+                raise ValueError("a plan launches only on the CUDA stream it was built under")
+            ptr = matrix.data_ptr()
+            args, n_passes, _ = self._bus_args(B, self._pad or ptr % 16 != 0)
+            out = torch.empty((2, T, B), dtype=torch.float32, device=self.device)
+        with span("convert", 0, T):
+            _raise_on(self._lib.wind_pv_bus_launch(*self._head, ptr, *args, out.data_ptr(),
+                                                   self._stream, None), "launch")
+        wind_pv_bus_megakernel.launches += 1
+        wind_pv_bus_megakernel.bus_passes += n_passes
+        wind_pv_bus_megakernel.staged16 += self._staged16
+        self._count_reuse()
+        return out[0], out[1]
+
+    def _count_reuse(self):
+        wind_pv_bus_megakernel.planned += self._launched
+        self._launched = True
+
+
 def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=80.0,
-                           table=None):
-    """Fused wind + PV + aggregation.
+                           table=None, plan=None):
+    """Fused wind + PV + aggregation: ``Plan(fields, lat_cell, V, POWn,
+    table, panel, hub_height).launch(matrix)``.
 
     fields: dict of (T, C) float32 tensors (FIELD_ORDER keys, wind at
     100 m); lat_cell: (C,) latitude of each flattened cell [deg]; matrix:
     (B, C) aggregation weights; V, POWn: power-curve knots (2 to
     MAX_KNOTS) and normalised power; panel: Huld parameters; table:
     ``knot_table(V, POWn)``, from a caller that keeps it across calls
-    (built here when None; the plain version does not read it).  Returns
+    (built here when None; the plain version does not read it); plan: the
+    ``Plan`` of these very fields, lat_cell, V, POWn, panel and hub height,
+    from a caller that keeps it across calls (built here when None; it
+    holds its own table; raises when built from other inputs).  Returns
     (wind_bus, pv_bus), each (T, B).  CUDA tensors go through the kernel
     (``launches`` counts the launches, ``bus_passes`` its passes over the
     buses: ceil(B / the bus tile of ``occupancy``) a launch), CPU tensors
@@ -224,52 +349,20 @@ def wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, panel, hub_height=
     fields and matrix were all staged by 16-byte copies: every launch but
     those whose nine fields' bases differ in their 16-byte phase (a matrix
     whose rows are not 16-byte aligned, as where C % 4 != 0, is copied
-    with a padded pitch by the launch's prologue).  On the card the
-    argument building runs in a ``pack 0:T`` span, the launch in
-    ``convert 0:T``.
+    with a padded pitch by the launch's prologue).  ``planned`` counts the
+    calls, on either route, that reused a plan (``Plan``; a caller that
+    keeps one, as ``entry.step_fn`` does).  On the card the argument
+    building runs in ``pack 0:T`` spans, the launch in ``convert 0:T``.
     """
-    T, C, B, device = _check(fields, lat_cell, matrix, V, POWn)
-    if device.type == "cpu":
-        return wind_pv_bus_plain(fields, lat_cell, matrix, V, POWn, panel, hub_height)
-    with span("pack", 0, T):
-        if table is None:
-            table = knot_table(V, POWn)
-        if not (table.device == device and table.dtype == torch.float32
-                and table.is_contiguous()
-                and table.shape == (1 << (V.shape[0] - 1).bit_length(), 4)):
-            raise ValueError("table must be knot_table(V, POWn) on the fields' device")
-
-        lib = _library()
-        prm = _panel(panel)
-        # the kernel multiplies by the reciprocal, rounded once here
-        prm["r_irradiance"] = float(np.float32(1.0) / np.float32(prm["r_irradiance"]))
-        n_blocks, split, n_items, n_passes = _grid(device.index, T, C, B)
-        panel_cells = torch.empty((C, 4), dtype=torch.float32, device=device)
-        # the matrix with 16-byte rows, filled by the kernel's prologue
-        mat_pad = torch.empty((B, -(-C // 4) * 4), dtype=torch.float32, device=device) \
-            if C % 4 or matrix.data_ptr() % 16 else None
-        part = torch.empty((2, n_items, UNIT_ROWS, B), dtype=torch.float32, device=device)
-        out = torch.empty((2, T, B), dtype=torch.float32, device=device)
-        field_ptrs = (ctypes.c_void_p * len(FIELD_ORDER))(
-            *[fields[k].data_ptr() for k in FIELD_ORDER])
-        params = (ctypes.c_float * 12)(float(hub_height), *prm.values())
-        stream = torch.cuda.current_stream(device).cuda_stream
-        staged16 = ctypes.c_int(0)
-        args = (device.index, field_ptrs, lat_cell.data_ptr(), matrix.data_ptr(),
-                None if mat_pad is None else mat_pad.data_ptr(),
-                table.data_ptr(), table.shape[0], V.shape[0], T, C, B,
-                split["block_unit"].data_ptr(), split["block_item"].data_ptr(),
-                split["tile_item"].data_ptr(), n_blocks, n_items, params,
-                panel_cells.data_ptr(), part.data_ptr(), out.data_ptr(), stream,
-                ctypes.byref(staged16))
-    with span("convert", 0, T):
-        _raise_on(lib.wind_pv_bus_launch(*args), "launch")
-    wind_pv_bus_megakernel.launches += 1
-    wind_pv_bus_megakernel.bus_passes += n_passes
-    wind_pv_bus_megakernel.staged16 += staged16.value
-    return out[0], out[1]
+    if plan is None:
+        plan = Plan(fields, lat_cell, V, POWn, table, panel, hub_height)
+    elif (any(a is not b for a, b in zip(plan._inputs, (fields, lat_cell, V, POWn, panel)))
+          or plan._inputs[5] != hub_height):
+        raise ValueError("plan was built from other inputs")
+    return plan.launch(matrix)
 
 
 wind_pv_bus_megakernel.launches = 0
 wind_pv_bus_megakernel.bus_passes = 0
 wind_pv_bus_megakernel.staged16 = 0
+wind_pv_bus_megakernel.planned = 0

@@ -20,11 +20,12 @@ import torch
 import __graft_entry__ as ge
 from atlite_tpu.ops.megakernel import wind_pv_bus_megakernel as pallas_megakernel
 from atlite_tpu.physics import wind as jax_wind
-from atlite_tpu_torch import build_inputs
-from atlite_tpu_torch.entry import PANEL
+from atlite_tpu_torch import build_inputs, from_jax_inputs
+from atlite_tpu_torch.entry import PANEL, step_fn
 from atlite_tpu_torch.ops.megakernel import (
     FIELD_ORDER,
     MAX_KNOTS,
+    Plan,
     UNIT_CELLS,
     UNIT_ROWS,
     knot_table,
@@ -132,6 +133,108 @@ def test_wrapper_raises_on_shape_and_layout():
     with pytest.raises(ValueError, match="Huld"):
         wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn,
                                {**PANEL, "model": "bofinger"})
+
+
+def step_args(T=12, Y=5, X=7, B=3):
+    """CPU tensors of the headline step's arguments, by the bench recipe."""
+    return list(from_jax_inputs(*build_inputs(T, Y, X, B), device="cpu"))
+
+
+def same_bits(a, b):
+    """Equal bit for bit, NaN included."""
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+
+def write_field(args):
+    args[0]["temperature"].add_(1.5)
+
+
+def replace_field(args):
+    args[0]["albedo"] = args[0]["albedo"] * 0.5
+
+
+def write_lat(args):
+    args[3].add_(2.0)
+
+
+def replace_V(args):
+    args[4] = args[4] + 0.5
+
+
+@pytest.mark.parametrize("change, rebuilt", [(None, False), (write_field, True),
+                                             (replace_field, True), (write_lat, True),
+                                             (replace_V, True)])
+def test_step_keeps_its_plan_until_an_input_changes(change, rebuilt):
+    """``step_fn`` keeps its launch plan while it is given the same fields,
+    ``lat``, ``V`` and ``POWn``: two matrices in turn reuse it after the
+    first call (``planned`` counts each reuse); a field or ``lat`` written
+    in place, or a field or ``V`` replaced by another tensor, builds it
+    again.  Every answer equals a fresh step's bit for bit."""
+    args = step_args()
+    m1 = args[6]
+    m2 = torch.flip(m1, (0,)).contiguous()
+    step = step_fn()
+    for i, m in enumerate((m1, m2, m1, m2)):
+        before = wind_pv_bus_megakernel.planned
+        got = step(*args[:6], m)
+        assert wind_pv_bus_megakernel.planned - before == (i > 0)
+        assert same_bits(got, step_fn()(*args[:6], m))
+    if change is not None:
+        change(args)
+    before = wind_pv_bus_megakernel.planned
+    got = step(*args[:6], m1)
+    assert wind_pv_bus_megakernel.planned - before == (not rebuilt)
+    assert same_bits(got, step_fn()(*args[:6], m1))
+    before = wind_pv_bus_megakernel.planned
+    assert same_bits(step(*args[:6], m2), step_fn()(*args[:6], m2))
+    assert wind_pv_bus_megakernel.planned - before == 1
+
+
+@pytest.mark.parametrize("bad, error, match", [
+    (lambda m: m.double(), TypeError, "float32"),
+    (lambda m: m.numpy(), TypeError, "torch.Tensor"),
+    (lambda m: m[:, :-1].contiguous(), ValueError, "matrix"),
+    (lambda m: m.T.contiguous().T, ValueError, "contiguous"),
+    (lambda m: m.to("meta"), ValueError, "not on"),
+])
+def test_step_checks_the_matrix_on_a_kept_plan(bad, error, match):
+    """A matrix the kernel does not take raises as the wrapper does, also
+    after a valid call, when the plan is reused; the plan stays usable."""
+    args = step_args()
+    step = step_fn()
+    want = step(*args)
+    with pytest.raises(error, match=match):
+        step(*args[:6], bad(args[6]))
+    before = wind_pv_bus_megakernel.planned
+    assert same_bits(step(*args), want)
+    assert wind_pv_bus_megakernel.planned - before == 1
+
+
+def test_wrapper_refuses_a_plan_of_other_inputs():
+    """A plan given to the wrapper must have been built from the very
+    tensors, panel and hub height it is given with."""
+    fields, lat_cell, matrix, V, POWn = valid_args()
+    plan = Plan(fields, lat_cell, V, POWn, None, PANEL)
+    want = wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, PANEL)
+    assert same_bits(wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, PANEL,
+                                            plan=plan), want)
+    with pytest.raises(ValueError, match="other inputs"):
+        wind_pv_bus_megakernel(fields, lat_cell, matrix, V.clone(), POWn, PANEL, plan=plan)
+    with pytest.raises(ValueError, match="other inputs"):
+        wind_pv_bus_megakernel(fields, lat_cell, matrix, V, POWn, PANEL, hub_height=100.0,
+                               plan=plan)
+
+
+def test_step_in_inference_mode_builds_every_call():
+    """Tensors made in inference mode keep no version, so the step cannot
+    tell whether they were written: it builds its plan at every call."""
+    with torch.inference_mode():
+        args = step_args()
+        step = step_fn()
+        before = wind_pv_bus_megakernel.planned
+        first, second = step(*args), step(*args)
+    assert wind_pv_bus_megakernel.planned == before
+    assert same_bits(first, second)
 
 
 def searched_curve(table, n_knots, x):

@@ -29,6 +29,7 @@ from atlite_tpu_torch import Cutout, build_inputs
 from atlite_tpu_torch.entry import PANEL, step_fn
 from atlite_tpu_torch.ops.megakernel import (
     FIELD_ORDER,
+    Plan,
     knot_table,
     occupancy,
     wind_pv_bus_megakernel,
@@ -182,6 +183,68 @@ def test_staged16_counts_the_step_on_its_own_fields(cuda_device):
     torch.cuda.synchronize()
     assert wind_pv_bus_megakernel.launches - launches == 3
     assert wind_pv_bus_megakernel.staged16 - before == 3
+
+
+def step_inputs(device, T=48, Y=17, X=23, B=34):
+    """The step's (T, Y, X) fields, lon, lat, V and POWn, and two (B, C)
+    matrices, on the card: C = 17 x 23 (3 mod 4, as the year's 23,711
+    cells), B = 34 as PyPSA-Eur's countries."""
+    fields, _, lon, lat, V, POWn, matrix = build_inputs(T, Y, X, B)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=device)
+    args = ({k: put(fields[k]) for k in FIELD_ORDER}, None, put(lon), put(lat), put(V), put(POWn))
+    return args, (put(matrix), put(matrix[::-1]))
+
+
+@pytest.mark.cuda
+def test_step_reuses_its_plan_on_two_matrices(cuda_device):
+    """N steps on fixed fields with two matrices in turn reuse the plan
+    N - 1 times (``planned``) and launch N times; each answer equals a
+    fresh step's bit for bit; a step's output is storage of its own, which
+    the next step leaves as it was."""
+    args, mats = step_inputs(cuda_device)
+    step = step_fn()
+    N = 6
+    planned, launches = wind_pv_bus_megakernel.planned, wind_pv_bus_megakernel.launches
+    outs = []
+    for i in range(N):
+        kept = [o.clone() for o in outs[-1]] if outs else None  # before the next step
+        outs.append(step(*args, mats[i % 2]))
+    torch.cuda.synchronize()
+    assert wind_pv_bus_megakernel.planned - planned == N - 1
+    assert wind_pv_bus_megakernel.launches - launches == N
+    assert same_bits(outs[-2], kept)
+    assert len({o[0].untyped_storage().data_ptr() for o in outs}) == N
+    for i, out in enumerate(outs):
+        assert same_bits(out, step_fn()(*args, mats[i % 2]))
+    assert_close(outs[0], wind_pv_bus_plain(
+        {k: v.reshape(48, -1) for k, v in args[0].items()}, args[3].repeat_interleave(23),
+        mats[0], args[4], args[5], PANEL, 80.0), (48, 34))
+
+
+@pytest.mark.cuda
+def test_step_on_a_side_stream_builds_its_own_plan(cuda_device):
+    """A step under another current stream builds a plan for that stream,
+    then reuses it there, and builds again back on the default stream; the
+    answers equal the default stream's bit for bit.  A plan refuses to
+    launch under a stream it was not built for."""
+    args, mats = step_inputs(cuda_device)
+    step = step_fn()
+    want = [step(*args, m) for m in mats]
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    before = wind_pv_bus_megakernel.planned
+    with torch.cuda.stream(side):
+        got = [step(*args, m) for m in mats]
+    assert wind_pv_bus_megakernel.planned - before == 1
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    back = step(*args, mats[0])
+    assert wind_pv_bus_megakernel.planned - before == 1
+    torch.cuda.synchronize()
+    assert all(same_bits(g, w) for g, w in zip(got, want)) and same_bits(back, want[0])
+    flat = {k: v.reshape(48, -1) for k, v in args[0].items()}
+    plan = Plan(flat, args[3].repeat_interleave(23), args[4], args[5], None, PANEL)
+    with torch.cuda.stream(side), pytest.raises(ValueError, match="stream"):
+        plan.launch(mats[0])
 
 
 @pytest.mark.cuda

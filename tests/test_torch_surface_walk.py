@@ -37,7 +37,7 @@ INTENDED_PARAMS = {
     "atlite_tpu.ops.megakernel.wind_pv_bus_megakernel": {"time_tile", "cell_tile", "interpret"},
 }
 INTENDED_DEFAULTS = {"atlite_tpu.profiling.device_trace": {"logdir"}}
-# parameters only the port has: where it runs
+# parameters only the port has: where it runs, and what a caller keeps across calls
 PORT_ONLY = {
     "atlite_tpu.convert.convert_line_rating": {"device"},
     "atlite_tpu.core.comm.global_mesh": {"devices"},
@@ -46,7 +46,7 @@ PORT_ONLY = {
     "atlite_tpu.cutout.Cutout.availabilitymatrix": {"mesh"},
     "atlite_tpu.gis.exclusion.compute_availabilitymatrix": {"mesh"},
     "atlite_tpu.ops.bsr_spmm.stage_banded": {"device"},
-    "atlite_tpu.ops.megakernel.wind_pv_bus_megakernel": {"table"},
+    "atlite_tpu.ops.megakernel.wind_pv_bus_megakernel": {"table", "plan"},
     "atlite_tpu.physics.hydro.inflow_for_plants": {"device", "dtype"},
     "atlite_tpu.physics.hydro.shift_and_aggregate_runoff_for_plants": {"device"},
     "atlite_tpu.profiling.device_trace": {"device"},
